@@ -10,19 +10,29 @@ Phases, each fatal on failure:
 
 1. Device: name, count and power limit; every kernel in
    ``ray_tpu_torch/csrc`` built from source, with the build time.
-2. Kernels: each kernel against its plain PyTorch version on the card
+2. Forward kernel: held against its plain PyTorch version on the card
    (fp32 at ragged and whole-tile lengths, causal and not; bf16 at the
    flagship shape), then timed with CUDA events beside the plain version
    and one library call that computes the same function.
-3. Serving: the flagship transformer (671M parameters, random weights from
+3. Backward kernels (dQ, dK/dV): held against the plain backward on the
+   same (q, k, v, O, LSE, dO), fp32 and bf16 as above, then timed with
+   the D computation, the plain backward and the library's backward.
+4. Memory: peak device memory of a kernel-path attention forward and
+   backward grows linearly in S (no S x S tensor).
+5. Serving: the flagship transformer (671M parameters, random weights from
    a seed) at full width answers 8 requests of 2048 tokens in 2 batches
    of 4, each answer the greedy next token and the head of the
    last-position logits. The launch counts show that the attention went
-   through the kernel; the logits are held against the plain attention
-   path.
+   through the forward kernel; the logits are held against the plain
+   attention path.
+6. Training: the flagship at full width takes 6 optimizer steps on batches
+   of 4 x 2048 tokens. The launch counts show that every step's attention
+   went through the three kernels, 8 launches each.
+7. Training parity: one gradient of the loss at batch 1 x 2048 through the
+   kernels, held against the plain attention path in bf16 and in fp32.
 
-Then a ``{"serving": ...}`` line, a ``{"kernels": [...]}`` line, and last
-the result line ``{"ok": true, "device": {...}}``.
+Then ``{"serving": ...}``, ``{"training": ...}`` and ``{"kernels": [...]}``
+lines, and last the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # ``ray_tpu_torch.ops.flash_attention`` is shadowed by the function of the
@@ -42,12 +53,18 @@ import torch
 native_loader = importlib.import_module("ray_tpu_torch._private.native_loader")
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 tfm = importlib.import_module("ray_tpu_torch.models.transformer")
+trn = importlib.import_module("ray_tpu_torch.models.training")
 
 # Tolerances, fixed before the first run on the card.
 FP32_O_TOL = 2e-5     # abs and rel: the JAX package's forward bound; TF32 off
 BF16_O_TOL = 2e-2     # abs, compared in fp32: about one bf16 step at |o| < 4
 LSE_TOL = 1e-4        # abs
 LOGITS_GAP_FACTOR = 2.0  # kernel path vs plain path, over plain bf16 vs fp32
+FP32_GRAD_TOL = 2e-4  # abs and rel: the JAX package's gradient bound; TF32 off
+BF16_GRAD_REL = 1e-2  # |dg| / |g_plain| per gradient, compared in fp32
+GRAD_GAP_FACTOR = 2.0    # model gradient and loss, kernel vs plain bf16, over
+LOSS_GAP_FLOOR = 1e-3    # plain bf16 vs fp32 (the loss bound has this floor)
+MEM_DOUBLING_MAX = 2.2   # peak memory growth per doubling of S (linear: 2)
 
 # Published H100 SXM peaks (dense): used only for the bound, never measured.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -57,6 +74,24 @@ SEED = 0
 DEVICE = "cuda"
 FLAGSHIP_ATTN = (4, 2048, 16, 128)   # B, S, N, H at the flagship width
 N_REQUESTS, BATCH, SEQ = 8, 4, 2048
+TRAIN_STEPS = 6
+MEM_SEQS = (1024, 2048, 4096)        # B1 N16 H128 bf16
+
+
+def flagship_config():
+    """The flagship of bench.py:1289-1293 at full width and depth."""
+    return tfm.TransformerConfig(
+        vocab_size=32_768, d_model=2048, n_layers=8, n_heads=16,
+        n_kv_heads=16, d_ff=8192, max_seq_len=SEQ, remat=False,
+        use_flash=True, dtype=torch.bfloat16)
+
+
+def launch_counts():
+    return fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv
+
+
+def reset_launch_counts():
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
 
 
 class SmokeFailure(RuntimeError):
@@ -94,6 +129,28 @@ def flash_bound_ms(b, s_q, s_k, n, h, causal, dtype_name, itemsize):
     flops = 4 * b * n * h * pairs
     nbytes = (2 * b * s_q * n * h + 2 * b * s_k * n * h) * itemsize \
         + 4 * b * n * s_q
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def flash_bwd_bound_ms(kernel, b, s_q, s_k, n, h, causal, dtype_name,
+                       itemsize):
+    """Least time for a backward kernel on the card, as for the forward:
+    dQ takes three products over the unmasked pairs (q k^T, dO v^T,
+    dS k) and moves q, k, v, dO and dQ once with the fp32 LSE and D;
+    dK/dV takes four (q k^T, dO v^T, P^T dO, dS^T q) and moves q, k, v,
+    dO, dK and dV once with LSE and D."""
+    if causal:
+        pairs = sum(min(i + 1, s_k) for i in range(s_q))
+    else:
+        pairs = s_q * s_k
+    n_products, n_q_tensors, n_k_tensors = {
+        "dq": (3, 3, 2), "dkv": (4, 2, 4)}[kernel]
+    flops = 2 * n_products * b * n * h * pairs
+    nbytes = (n_q_tensors * b * s_q + n_k_tensors * b * s_k) * n * h \
+        * itemsize + 2 * 4 * b * n * s_q
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -179,6 +236,244 @@ def phase_kernels():
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_backward_kernels():
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+
+    def inputs(shape, dtype, causal):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE)
+                       .to(dtype) for _ in range(4))
+        o, lse = fa.flash_attention_plain(q, k, v, causal)
+        return q, k, v, o, lse, do
+
+    names = ("dQ", "dK", "dV")
+    for causal in (True, False):
+        for s in (96, 160, 256):
+            for h in (64, 128):
+                args = inputs((2, s, 3, h), torch.float32, causal)
+                got = fa.flash_attention_bwd_cuda(*args, causal)
+                want = fa.flash_attention_bwd_plain(*args, causal)
+                torch.cuda.synchronize()
+                errs = []
+                for name, g, w in zip(names, got, want):
+                    check(bool(torch.isfinite(g).all()), f"non-finite {name}")
+                    excess = ((g - w).abs()
+                              - (FP32_GRAD_TOL + FP32_GRAD_TOL * w.abs())).max()
+                    check(excess.item() <= 0.0,
+                          f"fp32 {name} off by more than {FP32_GRAD_TOL} "
+                          f"abs/rel at causal={causal} S={s} H={h}")
+                    errs.append((g - w).abs().max().item())
+                print(f"flash bwd fp32 causal={causal} S={s} H={h}: max "
+                      f"abs err " + " ".join(f"{n} {e:.3g}"
+                                             for n, e in zip(names, errs)))
+
+    b, s, n, h = FLAGSHIP_ATTN
+    q, k, v, o, lse, do = inputs((b, s, n, h), torch.bfloat16, True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    abs_err, rel_err = {}, {}
+    for name, g, w in zip(names, got, want):
+        check(g.dtype == torch.bfloat16, f"{name} is {g.dtype}")
+        check(bool(torch.isfinite(g).all()), f"non-finite bf16 {name}")
+        diff = g.float() - w.float()
+        abs_err[name] = diff.abs().max().item()
+        rel_err[name] = (diff.norm() / w.float().norm()).item()
+        check(rel_err[name] <= BF16_GRAD_REL,
+              f"bf16 {name} off by {rel_err[name]:.3g} in relative norm")
+    print(f"flash bwd bf16 causal flagship {FLAGSHIP_ATTN}: max abs err "
+          + " ".join(f"{k_} {abs_err[k_]:.3g} (rel norm {rel_err[k_]:.3g})"
+                     for k_ in names))
+    del got, want
+
+    scale = 1.0 / math.sqrt(h)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, do, lse, delta, True, scale, dq), iters=20)
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, True, scale, dk, dv), iters=20)
+    delta_ms = time_ms(lambda: fa.flash_attention_bwd_delta(o, do), iters=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    sdpa_fwd_ms = time_ms(sdpa_fwd, iters=20)
+    sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters=20)
+    library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+    bounds = {kern: flash_bwd_bound_ms(kern, b, s, s, n, h, True, "bfloat16",
+                                       q.element_size())
+              for kern in ("dq", "dkv")}
+    print(f"flash bwd timing at {FLAGSHIP_ATTN} bf16 causal: dQ kernel "
+          f"{dq_ms:.4f} ms (bound {bounds['dq'][0]:.4f} ms, "
+          f"{bounds['dq'][1]}), dK/dV kernel {dkv_ms:.4f} ms (bound "
+          f"{bounds['dkv'][0]:.4f} ms, {bounds['dkv'][1]}), D "
+          f"{delta_ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
+          f"backward {library_ms:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} "
+          f"- fwd {sdpa_fwd_ms:.4f})")
+    return {"dq": {"max_abs_err": abs_err["dQ"], "rel_err": rel_err["dQ"],
+                   "ms": dq_ms, "bound_ms": bounds["dq"][0],
+                   "bound_by": bounds["dq"][1]},
+            "dkv": {"max_abs_err": max(abs_err["dK"], abs_err["dV"]),
+                    "rel_err": max(rel_err["dK"], rel_err["dV"]),
+                    "ms": dkv_ms, "bound_ms": bounds["dkv"][0],
+                    "bound_by": bounds["dkv"][1]},
+            "delta_ms": delta_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms}
+
+
+def phase_memory():
+    """Peak memory of a kernel-path attention forward and backward, above
+    what was allocated before its inputs, at B1 N16 H128 bf16."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    peaks = []
+    for s in MEM_SEQS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        q, k, v = (torch.randn((1, s, 16, 128), generator=gen, device=DEVICE,
+                               dtype=torch.bfloat16).requires_grad_()
+                   for _ in range(3))
+        do = torch.randn((1, s, 16, 128), generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+        out = fa.flash_attention(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        check(tuple(a - b for a, b in zip(launch_counts(), before))
+              == (1, 1, 1), "memory check did not run the kernels")
+        del q, k, v, do, out, grads
+    ratios = [b / a for a, b in zip(peaks, peaks[1:])]
+    print(f"attention fwd+bwd peak memory at S={MEM_SEQS}: {peaks} bytes, "
+          f"ratio per doubling {[round(r, 4) for r in ratios]}")
+    check(all(r <= MEM_DOUBLING_MAX for r in ratios),
+          f"peak memory grows faster than linear in S: {ratios}")
+    return {"seqs": list(MEM_SEQS), "peak_bytes": peaks,
+            "ratio_per_doubling": ratios}
+
+
+def phase_training():
+    cfg = flagship_config()
+    tx = trn.make_optimizer(total_steps=1000)
+    t0 = time.perf_counter()
+    state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = trn.make_train_step(cfg, tx)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (BATCH, SEQ))).to(DEVICE)
+    probes = [state.params["blocks"][0]["wq"], state.params["final_norm"]]
+    before = [p.detach().clone() for p in probes]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step = tuple(a - b for a, b in zip(launch_counts(), counts))
+        check(per_step == (cfg.n_layers,) * 3,
+              f"step {i}: (fwd, dQ, dK/dV) launches {per_step}, expected "
+              f"{cfg.n_layers} each")
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        check(metrics["step"] == i, f"step {i} reported {metrics['step']}")
+        if i == 0:   # lr is 0 at step 0: nothing moves
+            check(all(torch.equal(p.detach(), b)
+                      for p, b in zip(probes, before)),
+                  "parameters moved on step 0, where lr is 0")
+        elif i == 1:
+            check(all(not torch.equal(p.detach(), b)
+                      for p, b in zip(probes, before)),
+                  "parameters did not move on step 1")
+    launches = launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite loss or grad norm: {losses}, {norms}")
+    check(state.step == TRAIN_STEPS, f"state at step {state.step}")
+    step_s = sum(times[1:]) / len(times[1:])
+    print(f"training: init {init_s:.2f} s; step times {times} s; losses "
+          f"{losses}; grad norms {norms}")
+    print(f"training: {step_s:.5f} s per step over steps 2-{TRAIN_STEPS}, "
+          f"{BATCH * SEQ / step_s:.1f} tokens/s, peak {peak_bytes} bytes, "
+          f"launches (fwd, dQ, dK/dV) {launches}")
+    del state, probes, before
+    return {"config": (f"d{cfg.d_model} L{cfg.n_layers} H{cfg.n_heads}/"
+                       f"{cfg.n_kv_heads} ff{cfg.d_ff} V{cfg.vocab_size} "
+                       f"bf16, flash, remat off, AdamW total_steps 1000"),
+            "batch": BATCH, "seq": SEQ, "steps": TRAIN_STEPS,
+            "step_time_s": times, "mean_step_s_2_to_last": step_s,
+            "tokens_per_s": BATCH * SEQ / step_s, "peak_mem_bytes": peak_bytes,
+            "losses": losses, "grad_norms": norms, "init_s": init_s,
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dq": launches[1],
+                         "flash_bwd_dkv": launches[2]}}, tokens
+
+
+def phase_training_parity(tokens):
+    """One gradient of the loss at batch 1 through the kernels and through
+    the plain attention path in bf16 and fp32, from the same parameters."""
+    cfg = flagship_config()
+    params = tfm.init_params(cfg, seed=SEED + 4, device=DEVICE)
+    leaves = trn.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {"tokens": tokens[:1]}
+
+    def loss_and_grads(c):
+        loss = tfm.loss_fn(params, batch, c)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    before = launch_counts()
+    loss_k, g_k = loss_and_grads(cfg)
+    check(tuple(a - b for a, b in zip(launch_counts(), before))
+          == (cfg.n_layers,) * 3, "kernel-path gradient missed a kernel")
+    loss_pb, g_pb = loss_and_grads(dataclasses.replace(cfg, use_flash=False))
+    loss_pf, g_pf = loss_and_grads(dataclasses.replace(
+        cfg, use_flash=False, dtype=torch.float32))
+
+    def dist(a, b):
+        return math.sqrt(sum((x - y).double().square().sum().item()
+                             for x, y in zip(a, b)))
+
+    ref = math.sqrt(sum(x.double().square().sum().item() for x in g_pf))
+    err = dist(g_k, g_pb) / ref
+    gap = dist(g_pb, g_pf) / ref
+    err_fp32 = dist(g_k, g_pf) / ref
+    loss_err, loss_gap = abs(loss_k - loss_pb), abs(loss_pb - loss_pf)
+    loss_bound = max(GRAD_GAP_FACTOR * loss_gap, LOSS_GAP_FLOOR)
+    print(f"training parity (B1 x {SEQ}): |g_kernel - g_plain_bf16| / "
+          f"|g_plain_fp32| {err:.4g}, plain bf16-vs-fp32 gap {gap:.4g}, "
+          f"kernel vs fp32 {err_fp32:.4g}; losses kernel {loss_k:.6f}, "
+          f"plain bf16 {loss_pb:.6f}, plain fp32 {loss_pf:.6f}")
+    check(all(math.isfinite(x) for x in (loss_k, err, gap)),
+          "non-finite parity numbers")
+    check(gap > 0 and err <= GRAD_GAP_FACTOR * gap,
+          f"kernel-path gradient off by {err:.4g}, over "
+          f"{GRAD_GAP_FACTOR} x the bf16/fp32 gap {gap:.4g}")
+    check(loss_err <= loss_bound,
+          f"kernel-path loss off by {loss_err:.4g}, over {loss_bound:.4g}")
+    return {"grad_rel_err": err, "grad_rel_gap_bf16_fp32": gap,
+            "grad_rel_err_vs_fp32": err_fp32, "loss_kernel": loss_k,
+            "loss_plain_bf16": loss_pb, "loss_plain_fp32": loss_pf}
+
+
 class Replica:
     """Plays a Serve replica of the flagship model: builds the forward
     once, runs it at construction, and answers each batch of requests
@@ -205,10 +500,7 @@ class Replica:
 
 
 def phase_serving():
-    cfg = tfm.TransformerConfig(
-        vocab_size=32_768, d_model=2048, n_layers=8, n_heads=16,
-        n_kv_heads=16, d_ff=8192, max_seq_len=SEQ, remat=False,
-        use_flash=True, dtype=torch.bfloat16)
+    cfg = flagship_config()
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
@@ -223,7 +515,7 @@ def phase_serving():
     replica = Replica(cfg, params, BATCH, SEQ)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    reset_launch_counts()
     latencies, answers, first_logits = [], [], None
     for i in range(N_REQUESTS // BATCH):
         batch = requests[i * BATCH:(i + 1) * BATCH]
@@ -241,6 +533,7 @@ def phase_serving():
     peak_bytes = torch.cuda.max_memory_allocated()
     check(launches == cfg.n_layers * (N_REQUESTS // BATCH),
           f"{launches} flash launches in the serving run")
+    check(launch_counts()[1:] == (0, 0), "serving launched a backward kernel")
     check(len(answers) == N_REQUESTS, f"{len(answers)} answers")
     check(all(0 <= a["next_token"] < cfg.vocab_size
               and all(math.isfinite(x) for x in a["logits_head"])
@@ -288,20 +581,51 @@ def main() -> int:
         return 1
     name, count = phase_device()
     flash = phase_kernels()
-    serving, launches = phase_serving()
+    bwd = phase_backward_kernels()
+    memory = phase_memory()
+    serving, serving_launches = phase_serving()
+    torch.cuda.empty_cache()
+    training, tokens = phase_training()
+    torch.cuda.empty_cache()
+    training["parity"] = phase_training_parity(tokens)
+    training["memory_linear_in_s"] = memory
+    train_launches = training["launches"]
 
     print(json.dumps({"serving": serving}))
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"training": training}))
+    src = "ray_tpu/ops/flash_attention.py"
+    bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
+    kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:83",
-        "replaces_fn": "ray_tpu/ops/flash_attention.py::_flash_fwd_kernel",
-        "launches": launches,
+        "replaces": f"{src}:83", "replaces_fn": f"{src}::_flash_fwd_kernel",
+        "launches": serving_launches + train_launches["flash_fwd"],
+        "launches_by_path": {"serving": serving_launches,
+                             "training": train_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "ms": flash["ms"], "kernel_ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-    }]}))
+    }]
+    for key, line, fn in (("dq", 227, "_flash_bwd_dq_kernel"),
+                          ("dkv", 273, "_flash_bwd_dkv_kernel")):
+        k = bwd[key]
+        kernels.append({
+            "name": f"flash_bwd_{key}", "route": "cuda", "source": bwd_src,
+            "replaces": f"{src}:{line}", "replaces_fn": f"{src}::{fn}",
+            "launches": train_launches[f"flash_bwd_{key}"],
+            "launches_by_path": {"serving": 0, "training":
+                                 train_launches[f"flash_bwd_{key}"]},
+            "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
+            "rel_err": k["rel_err"], "ms": k["ms"], "kernel_ms": k["ms"],
+            "plain_ms": bwd["plain_ms"],
+            "plain_is": "the whole plain backward (dQ, dK, dV)",
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": bwd["library_ms"],
+            "library_is": "SDPA causal fwd+bwd minus fwd (dQ, dK, dV)",
+            "delta_ms": bwd["delta_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

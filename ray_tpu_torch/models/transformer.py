@@ -6,9 +6,9 @@ dictionary of fp32 tensors with the JAX package's names and shapes, cast
 to ``cfg.dtype`` at each use; logits come back in fp32. The decoder block
 is the same: GQA, interleaved RoPE, RMSNorm, SwiGLU or a dense-einsum MoE.
 
-With ``use_flash`` the attention runs through the port's flash forward
-(``ray_tpu_torch.ops.flash_attention``): the CUDA kernel for tensors on
-the card, its plain version on the CPU.
+With ``use_flash`` the attention runs through the port's flash attention
+(``ray_tpu_torch.ops.flash_attention``), forward and backward: the CUDA
+kernels for tensors on the card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
 
@@ -35,8 +36,9 @@ class TransformerConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10_000.0
     dtype: torch.dtype = torch.bfloat16    # compute dtype
-    # Rematerialisation per block. A forward without grad keeps nothing
-    # to rematerialise, so it has no effect in the serving slice.
+    # Rematerialisation per block: with gradients on, each block runs under
+    # torch.utils.checkpoint and is recomputed in the backward. A forward
+    # without gradients keeps nothing to rematerialise.
     remat: bool = True
     # Flash attention (ops/flash_attention.py): the fused blockwise
     # kernel, no S×S tensor in device memory.
@@ -201,8 +203,14 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
         from ray_tpu_torch.ops.flash_attention import flash_attention
         attn_fn = lambda q, k, v, causal=True: flash_attention(  # noqa: E731
             q, k, v, causal=causal)
+    remat = cfg.remat and torch.is_grad_enabled()
     for block in params["blocks"]:
-        x = _block_forward(block, x, positions, cfg, attn_fn=attn_fn)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block_forward, block, x, positions, cfg, attn_fn,
+                use_reentrant=False)
+        else:
+            x = _block_forward(block, x, positions, cfg, attn_fn=attn_fn)
     x = rms_norm(x, params["final_norm"])
     return (x @ params["unembed"].to(cfg.dtype)).float()
 

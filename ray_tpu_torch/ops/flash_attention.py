@@ -1,9 +1,15 @@
-"""Flash attention forward: a CUDA kernel for Hopper and its plain version.
+"""Flash attention: CUDA kernels for Hopper and their plain versions.
 
-Counterpart of ``ray_tpu/ops/flash_attention.py``. The forward kernel is
-``ray_tpu_torch/csrc/flash_attention.cu``, written by hand for ``sm_90a``
-in place of the Pallas ``_flash_fwd_kernel``. ``flash_attention_plain``
-computes the same function, O and LSE, densely in fp32.
+Counterpart of ``ray_tpu/ops/flash_attention.py``, written by hand for
+``sm_90a`` in place of its Pallas kernels:
+
+- the forward kernel, ``ray_tpu_torch/csrc/flash_attention.cu``, for
+  ``_flash_fwd_kernel``; ``flash_attention_plain`` computes the same
+  function, O and LSE, densely in fp32;
+- the backward kernels, ``ray_tpu_torch/csrc/flash_attention_bwd.cu``,
+  dQ for ``_flash_bwd_dq_kernel`` and dK/dV for ``_flash_bwd_dkv_kernel``;
+  ``flash_attention_bwd_plain`` computes the same gradients densely in
+  fp32, recomputing P from LSE.
 
 Dispatch is by where the tensors lie: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. Nothing
@@ -22,16 +28,19 @@ import torch
 
 from ray_tpu_torch._private import native_loader
 
-# Kernel launches since the last reset: a run reads it to show that its
-# attention went through the kernel.
-launches = 0
+# Kernel launches since the last reset, one count per kernel: a run reads
+# them to show that its attention went through the kernels.
+launches = 0            # forward
+launches_bwd_dq = 0     # backward, dQ
+launches_bwd_dkv = 0    # backward, dK and dV
 
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535   # the kernel's grid is (query tiles, B*N)
+_MAX_GRID_Y = 65535   # each kernel's grid is (tiles of S, B*N)
 _NEG = -1e30          # the masked logit, as in the JAX package
 
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def mha_reference(q, k, v, *, causal: bool = True,
@@ -74,6 +83,43 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     return out, lse.reshape(b * n, s_q)
 
 
+def flash_attention_bwd_delta(o, do) -> torch.Tensor:
+    """D = rowsum(dO * O) in fp32 as [B*N, Sq], the layout of LSE. The
+    JAX package also takes it outside its kernels."""
+    b, s_q, n, _ = o.shape
+    delta = (do.float() * o.float()).sum(dim=-1)              # [B,Sq,N]
+    return delta.permute(0, 2, 1).reshape(b * n, s_q).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
+                              sm_scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """What the backward kernels compute, densely in fp32 and without
+    autograd: (dQ, dK, dV) in the dtypes of q, k and v. P is recomputed
+    from LSE as exp(q k^T * scale - LSE), masked to 0 where the forward
+    masked it; dS = P * (dO V^T - D) * scale; dQ = dS K, dK = dS^T Q,
+    dV = P^T dO."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, s_q, n, _ = q.shape
+    s_k = k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqnh,bknh->bnqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse.reshape(b, n, s_q, 1))
+    if causal:
+        q_pos = torch.arange(s_q, device=q.device)
+        k_pos = torch.arange(s_k, device=q.device)
+        p = p.masked_fill(q_pos[:, None] < k_pos[None, :], 0.0)
+    delta = flash_attention_bwd_delta(o, do).reshape(b, n, s_q, 1)
+    dp = torch.einsum("bqnh,bknh->bnqk", dof, vf)
+    ds = p * (dp - delta) * sm_scale
+    dq = torch.einsum("bnqk,bknh->bqnh", ds, kf)
+    dk = torch.einsum("bnqk,bqnh->bknh", ds, qf)
+    dv = torch.einsum("bnqk,bqnh->bknh", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -87,15 +133,29 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True,
-                         sm_scale: Optional[float] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE) from the CUDA kernel, same contract as
-    ``flash_attention_plain``. Raises on what the kernel does not take."""
-    global launches
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = native_loader.load_library("flash_attention_bwd")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_bwd_dq.argtypes = (
+            [ptr] * 7 + [i32] * 6 + [i64] * 15
+            + [ctypes.c_float, i32, ptr])
+        lib.flash_attention_bwd_dkv.argtypes = (
+            [ptr] * 8 + [i32] * 6 + [i64] * 18
+            + [ctypes.c_float, i32, ptr])
+        lib.flash_attention_bwd_dq.restype = ctypes.c_int
+        lib.flash_attention_bwd_dkv.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _check_kernel_inputs(q, k, v, **same_as_q) -> None:
+    """Raise on what the kernels do not take: q, k, v and every tensor in
+    ``same_as_q`` (shaped like q) must be [B, S, N, H] on q's CUDA device,
+    of q's dtype (fp32 or bf16), with a contiguous head axis."""
+    named = {"q": q, "k": k, "v": v, **same_as_q}
+    for name, t in named.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on q's CUDA device, got "
                              f"{t.device}")
@@ -114,6 +174,10 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, n, h):
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    for name, t in same_as_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
+                             f"got {tuple(t.shape)}")
     if h not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, "
                          f"got {h}")
@@ -121,6 +185,23 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         raise ValueError(f"the kernel needs 1 <= B*N <= {_MAX_GRID_Y} and "
                          f"non-empty sequences, got {tuple(q.shape)}, "
                          f"Sk={s_k}")
+
+
+def _strides(*tensors):
+    return [st for t in tensors for st in t.stride()[:3]]
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True,
+                         sm_scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, LSE) from the CUDA kernel, same contract as
+    ``flash_attention_plain``. Raises on what the kernel does not take."""
+    global launches
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_kernel_inputs(q, k, v)
+    b, s_q, n, h = q.shape
+    s_k = k.shape[1]
     out = torch.empty((b, s_q, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * n, s_q), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
@@ -129,11 +210,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPE_CODES[q.dtype], b, n, s_q, s_k, h,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            float(sm_scale), int(bool(causal)), stream)
+            *_strides(q, k, v, out), float(sm_scale), int(bool(causal)),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -141,28 +219,101 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     return out, lse
 
 
-def _flash_fwd(q, k, v, causal, sm_scale):
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, sm_scale)
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal, sm_scale)
-    raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
+def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                                dq) -> None:
+    """Launch the dQ kernel into ``dq`` (q's shape and dtype). The
+    arguments are those ``flash_attention_bwd_cuda`` has checked; LSE and
+    D are contiguous fp32 [B*N, Sq]."""
+    global launches_bwd_dq
+    b, s_q, n, h = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_kernel_lib().flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, s_q, k.shape[1], h,
+            *_strides(q, k, v, do, dq), float(sm_scale), int(bool(causal)),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention dQ kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches_bwd_dq += 1
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                                 dk, dv) -> None:
+    """Launch the dK/dV kernel into ``dk`` and ``dv`` (k's shape and
+    dtype), with the arguments of ``flash_attention_bwd_dq_cuda``."""
+    global launches_bwd_dkv
+    b, s_q, n, h = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_kernel_lib().flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, s_q, k.shape[1], h,
+            *_strides(q, k, v, do, dk, dv), float(sm_scale),
+            int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention dK/dV kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches_bwd_dkv += 1
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
+                             sm_scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dQ, dK, dV) from the CUDA kernels, same contract as
+    ``flash_attention_bwd_plain``. Raises on what the kernels do not take;
+    a dO whose head axis is not contiguous is copied once."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if do.dim() == 4 and do.stride(-1) != 1:
+        do = do.contiguous()
+    _check_kernel_inputs(q, k, v, o=o, do=do)
+    b, s_q, n, _ = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b * n, s_q) or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 [B*N, Sq] = "
+                         f"{(b * n, s_q)} on q's device, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    delta = flash_attention_bwd_delta(o, do)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale, dq)
+    flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                                 dk, dv)
+    return dq, dk, dv
+
+
+def _on_device(cpu_fn, cuda_fn, *args):
+    device = args[0].device
+    if device.type == "cpu":
+        return cpu_fn(*args)
+    if device.type == "cuda":
+        return cuda_fn(*args)
+    raise ValueError(f"flash attention runs on cuda or cpu, got {device}")
 
 
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        out, _lse = _flash_fwd(q, k, v, causal, sm_scale)
+        out, lse = _on_device(flash_attention_plain, flash_attention_cuda,
+                              q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention has no backward in the port yet: the dQ and "
-            "dK/dV kernels (ray_tpu/ops/flash_attention.py "
-            "_flash_bwd_dq_kernel, _flash_bwd_dkv_kernel) are the training "
-            "slice's work")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _on_device(
+            flash_attention_bwd_plain, flash_attention_bwd_cuda,
+            q, k, v, out, lse, grad_out, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,

@@ -73,13 +73,29 @@ def test_mha_reference_matches_jax(causal, q_offset, kv_offset):
 
 
 def test_backward_is_the_training_slice():
+    """The backward of a CPU tensor is the plain backward, from the
+    forward's saved (q, k, v, O, LSE); its gradients are mha_reference's
+    (tests/test_torch_flash_attention_bwd.py holds them against JAX)."""
     q, k, v = (t.requires_grad_() for t in _torch(*_qkv(32)))
     out = pfa.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="_flash_bwd_dq_kernel"):
-        out.sum().backward()
+    do = torch.ones_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), grad_outputs=do)
+    o, lse = pfa.flash_attention_plain(q.detach(), k.detach(), v.detach())
+    plain = pfa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                          o, lse, do)
+    for g, p in zip(grads, plain):
+        torch.testing.assert_close(g, p, atol=0, rtol=0)
+    ref = torch.autograd.grad(pfa.mha_reference(q, k, v), (q, k, v),
+                              grad_outputs=do)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, atol=2e-4, rtol=2e-4)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """The CUDA wrapper never computes on the CPU in the kernel's place."""
+    """The CUDA wrappers never compute on the CPU in the kernels' place."""
+    q, k, v = _torch(*_qkv(32))
     with pytest.raises(ValueError, match="CUDA device"):
-        pfa.flash_attention_cuda(*_torch(*_qkv(32)))
+        pfa.flash_attention_cuda(q, k, v)
+    o, lse = pfa.flash_attention_plain(q, k, v)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pfa.flash_attention_bwd_cuda(q, k, v, o, lse, torch.ones_like(o))

@@ -44,9 +44,14 @@ def test_no_jax_or_ray_tpu_imports(path):
 
 def test_entry_points_default_to_the_card():
     from ray_tpu_torch.models import (TransformerConfig, init_params,
+                                      init_state, make_optimizer,
                                       params_from_jax)
     cfg = TransformerConfig(vocab_size=32, d_model=64, n_layers=1,
                             n_heads=1, n_kv_heads=1, d_ff=64)
+    tx = make_optimizer()
+    state = init_state(cfg, tx, device="cpu")
+    assert state.step == 0 and state.params["embed"].device.type == "cpu"
+    assert state.opt_state.mu[0].device.type == "cpu"
     params = init_params(cfg, device="cpu")
     tree = {k: (np.asarray(v) if k != "blocks" else
                 [{n: np.asarray(t) for n, t in b.items()} for b in v])
@@ -55,8 +60,11 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         assert init_params(cfg)["embed"].device.type == "cuda"
         assert params_from_jax(tree)["embed"].device.type == "cuda"
+        assert init_state(cfg, tx).params["embed"].device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_params(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             params_from_jax(tree)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_state(cfg, tx)

@@ -31,7 +31,8 @@ def workdir(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_is_listed():
-    assert "flash_attention" in nl.kernel_names()
+    assert {"flash_attention", "flash_attention_bwd"} <= set(
+        nl.kernel_names())
 
 
 def test_failed_build_raises_with_stderr(workdir, monkeypatch):
