@@ -15,8 +15,13 @@ Phases, each fatal on failure:
    flagship shape), then timed with CUDA events beside the plain version
    and one library call that computes the same function.
 3. Backward kernels (dQ, dK/dV): held against the plain backward on the
-   same (q, k, v, O, LSE, dO), fp32 and bf16 as above, then timed with
-   the D computation, the plain backward and the library's backward.
+   same (q, k, v, O, LSE, dO). fp32 (the CUDA-core kernels) at ragged and
+   whole-tile lengths, causal and not; bf16 (the wgmma kernels) at the
+   same shapes, on strided views of a fused qkv tensor, and at the
+   flagship shape, each gradient held both as a whole and per 64-row tile
+   of each head; two bf16 runs at the flagship shape must agree bit for
+   bit. Then timed with the D computation, the plain backward and the
+   library's backward, with each kernel's TFLOP/s and share of its bound.
 4. Memory: peak device memory of a kernel-path attention forward and
    backward grows linearly in S (no S x S tensor).
 5. Serving: the flagship transformer (671M parameters, random weights from
@@ -62,6 +67,7 @@ LSE_TOL = 1e-4        # abs
 LOGITS_GAP_FACTOR = 2.0  # kernel path vs plain path, over plain bf16 vs fp32
 FP32_GRAD_TOL = 2e-4  # abs and rel: the JAX package's gradient bound; TF32 off
 BF16_GRAD_REL = 1e-2  # |dg| / |g_plain| per gradient, compared in fp32
+BF16_TILE_REL = 2e-2  # the same, for the worst 64-row tile of any (b, n) head
 GRAD_GAP_FACTOR = 2.0    # model gradient and loss, kernel vs plain bf16, over
 LOSS_GAP_FLOOR = 1e-3    # plain bf16 vs fp32 (the loss bound has this floor)
 MEM_DOUBLING_MAX = 2.2   # peak memory growth per doubling of S (linear: 2)
@@ -135,26 +141,43 @@ def flash_bound_ms(b, s_q, s_k, n, h, causal, dtype_name, itemsize):
                                         else "bytes")
 
 
-def flash_bwd_bound_ms(kernel, b, s_q, s_k, n, h, causal, dtype_name,
-                       itemsize):
-    """Least time for a backward kernel on the card, as for the forward:
-    dQ takes three products over the unmasked pairs (q k^T, dO v^T,
-    dS k) and moves q, k, v, dO and dQ once with the fp32 LSE and D;
-    dK/dV takes four (q k^T, dO v^T, P^T dO, dS^T q) and moves q, k, v,
-    dO, dK and dV once with LSE and D."""
+def flash_bwd_flops(kernel, b, s_q, s_k, n, h, causal):
+    """Operations of a backward kernel over the unmasked pairs: dQ takes
+    three products (q k^T, dO v^T, dS k), dK/dV four (q k^T, dO v^T,
+    P^T dO, dS^T q)."""
     if causal:
         pairs = sum(min(i + 1, s_k) for i in range(s_q))
     else:
         pairs = s_q * s_k
-    n_products, n_q_tensors, n_k_tensors = {
-        "dq": (3, 3, 2), "dkv": (4, 2, 4)}[kernel]
-    flops = 2 * n_products * b * n * h * pairs
+    return 2 * {"dq": 3, "dkv": 4}[kernel] * b * n * h * pairs
+
+
+def flash_bwd_bound_ms(kernel, b, s_q, s_k, n, h, causal, dtype_name,
+                       itemsize):
+    """Least time for a backward kernel on the card, as for the forward:
+    its products (``flash_bwd_flops``) at the peak rate of the input
+    type, or its bytes: dQ moves q, k, v, dO and dQ once with the fp32
+    LSE and D, dK/dV q, k, v, dO, dK and dV once with LSE and D."""
+    n_q_tensors, n_k_tensors = {"dq": (3, 2), "dkv": (2, 4)}[kernel]
+    flops = flash_bwd_flops(kernel, b, s_q, s_k, n, h, causal)
     nbytes = (n_q_tensors * b * s_q + n_k_tensors * b * s_k) * n * h \
         * itemsize + 2 * 4 * b * n * s_q
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                         else "bytes")
+
+
+def worst_tile_rel(g, w, rows=64):
+    """Largest |g - w| / |w| over the ``rows``-row tiles of each (b, n)
+    head of two [B, S, N, H] tensors, in fp32."""
+    d, w = g.float() - w.float(), w.float()
+    worst = 0.0
+    for r0 in range(0, g.shape[1], rows):
+        num = d[:, r0:r0 + rows].norm(dim=(1, 3))
+        den = w[:, r0:r0 + rows].norm(dim=(1, 3)).clamp_min(1e-30)
+        worst = max(worst, (num / den).max().item())
+    return worst
 
 
 def phase_device():
@@ -246,6 +269,30 @@ def phase_backward_kernels():
         return q, k, v, o, lse, do
 
     names = ("dQ", "dK", "dV")
+
+    def check_bf16(got, want, what):
+        """Whole-tensor and worst-tile relative norms and the max abs error
+        of each gradient; fails past BF16_GRAD_REL or BF16_TILE_REL."""
+        rel, tile, abs_err = {}, {}, {}
+        for name, g, w in zip(names, got, want):
+            check(g.dtype == torch.bfloat16, f"{name} is {g.dtype}")
+            check(bool(torch.isfinite(g).all()), f"non-finite bf16 {name} "
+                  f"at {what}")
+            diff = g.float() - w.float()
+            rel[name] = (diff.norm() / w.float().norm()).item()
+            abs_err[name] = diff.abs().max().item()
+            tile[name] = worst_tile_rel(g, w)
+            check(rel[name] <= BF16_GRAD_REL,
+                  f"bf16 {name} off by {rel[name]:.3g} in relative norm at "
+                  f"{what}")
+            check(tile[name] <= BF16_TILE_REL,
+                  f"bf16 {name} off by {tile[name]:.3g} in relative norm in "
+                  f"one 64-row tile at {what}")
+        print(f"flash bwd bf16 {what}: rel norm " + " ".join(
+            f"{n_} {rel[n_]:.3g} (worst tile {tile[n_]:.3g}, max abs "
+            f"{abs_err[n_]:.3g})" for n_ in names))
+        return rel, tile, abs_err
+
     for causal in (True, False):
         for s in (96, 160, 256):
             for h in (64, 128):
@@ -265,25 +312,39 @@ def phase_backward_kernels():
                 print(f"flash bwd fp32 causal={causal} S={s} H={h}: max "
                       f"abs err " + " ".join(f"{n} {e:.3g}"
                                              for n, e in zip(names, errs)))
+                args = inputs((2, s, 3, h), torch.bfloat16, causal)
+                check_bf16(fa.flash_attention_bwd_cuda(*args, causal),
+                           fa.flash_attention_bwd_plain(*args, causal),
+                           f"causal={causal} S={s} H={h}")
+
+    # q, k, v: strided views of one fused [B, S, 3, N, H] tensor; dO with
+    # a head axis that is not contiguous (the wrapper copies it once).
+    qkv = torch.randn((2, 200, 3, 4, 128), generator=gen,
+                      device=DEVICE).to(torch.bfloat16)
+    q, k, v = qkv.unbind(dim=2)
+    o, lse = fa.flash_attention_plain(q, k, v, True)
+    do = torch.randn((2, 200, 4, 128), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+    do_strided = do.transpose(-1, -2).contiguous().transpose(-1, -2)
+    check_bf16(fa.flash_attention_bwd_cuda(q, k, v, o, lse, do_strided, True),
+               fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+               "fused qkv views, S=200")
+    del qkv, q, k, v, o, lse, do, do_strided
 
     b, s, n, h = FLAGSHIP_ATTN
     q, k, v, o, lse, do = inputs((b, s, n, h), torch.bfloat16, True)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
     torch.cuda.synchronize()
-    abs_err, rel_err = {}, {}
-    for name, g, w in zip(names, got, want):
-        check(g.dtype == torch.bfloat16, f"{name} is {g.dtype}")
-        check(bool(torch.isfinite(g).all()), f"non-finite bf16 {name}")
-        diff = g.float() - w.float()
-        abs_err[name] = diff.abs().max().item()
-        rel_err[name] = (diff.norm() / w.float().norm()).item()
-        check(rel_err[name] <= BF16_GRAD_REL,
-              f"bf16 {name} off by {rel_err[name]:.3g} in relative norm")
-    print(f"flash bwd bf16 causal flagship {FLAGSHIP_ATTN}: max abs err "
-          + " ".join(f"{k_} {abs_err[k_]:.3g} (rel norm {rel_err[k_]:.3g})"
-                     for k_ in names))
-    del got, want
+    rel_err, tile_err, abs_err = check_bf16(got, want, f"causal flagship "
+                                            f"{FLAGSHIP_ATTN}")
+    del want
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    print(f"flash bwd bf16 flagship repeat run bit-identical: {repeat}")
+    check(repeat, "two bf16 backward runs at the flagship shape differ")
+    del got, again
 
     scale = 1.0 / math.sqrt(h)
     delta = fa.flash_attention_bwd_delta(o, do)
@@ -314,6 +375,10 @@ def phase_backward_kernels():
     bounds = {kern: flash_bwd_bound_ms(kern, b, s, s, n, h, True, "bfloat16",
                                        q.element_size())
               for kern in ("dq", "dkv")}
+    times = {"dq": dq_ms, "dkv": dkv_ms}
+    tflops = {kern: flash_bwd_flops(kern, b, s, s, n, h, True)
+              / (times[kern] * 1e-3) / 1e12 for kern in times}
+    pair_ms = dq_ms + dkv_ms + delta_ms
     print(f"flash bwd timing at {FLAGSHIP_ATTN} bf16 causal: dQ kernel "
           f"{dq_ms:.4f} ms (bound {bounds['dq'][0]:.4f} ms, "
           f"{bounds['dq'][1]}), dK/dV kernel {dkv_ms:.4f} ms (bound "
@@ -321,12 +386,21 @@ def phase_backward_kernels():
           f"{delta_ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
           f"backward {library_ms:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} "
           f"- fwd {sdpa_fwd_ms:.4f})")
+    for kern, label in (("dq", "dQ"), ("dkv", "dK/dV")):
+        print(f"flash bwd {label}: {tflops[kern]:.1f} TFLOP/s, "
+              f"{bounds[kern][0] / times[kern]:.3f} of its bound")
+    print(f"flash bwd dQ + dK/dV + D {pair_ms:.4f} ms against sdpa backward "
+          f"{library_ms:.4f} ms: {pair_ms / library_ms:.3f}x")
     return {"dq": {"max_abs_err": abs_err["dQ"], "rel_err": rel_err["dQ"],
-                   "ms": dq_ms, "bound_ms": bounds["dq"][0],
+                   "tile_rel_err": tile_err["dQ"],
+                   "ms": dq_ms, "tflops": tflops["dq"],
+                   "bound_ms": bounds["dq"][0],
                    "bound_by": bounds["dq"][1]},
             "dkv": {"max_abs_err": max(abs_err["dK"], abs_err["dV"]),
                     "rel_err": max(rel_err["dK"], rel_err["dV"]),
-                    "ms": dkv_ms, "bound_ms": bounds["dkv"][0],
+                    "tile_rel_err": max(tile_err["dK"], tile_err["dV"]),
+                    "ms": dkv_ms, "tflops": tflops["dkv"],
+                    "bound_ms": bounds["dkv"][0],
                     "bound_by": bounds["dkv"][1]},
             "delta_ms": delta_ms, "plain_ms": plain_ms,
             "library_ms": library_ms}
@@ -606,6 +680,7 @@ def main() -> int:
         "ms": flash["ms"], "kernel_ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "variant": "bf16 and fp32: CUDA-core FMA",
     }]
     for key, line, fn in (("dq", 227, "_flash_bwd_dq_kernel"),
                           ("dkv", 273, "_flash_bwd_dkv_kernel")):
@@ -617,13 +692,15 @@ def main() -> int:
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
-            "rel_err": k["rel_err"], "ms": k["ms"], "kernel_ms": k["ms"],
+            "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
+            "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],
             "plain_ms": bwd["plain_ms"],
             "plain_is": "the whole plain backward (dQ, dK, dV)",
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": bwd["library_ms"],
             "library_is": "SDPA causal fwd+bwd minus fwd (dQ, dK, dV)",
             "delta_ms": bwd["delta_ms"],
+            "variant": "bf16: wgmma + TMA; fp32: CUDA-core FMA",
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Each ``ray_tpu_torch/csrc/<name>.cu`` compiles at first use with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. Libraries are cached under ``ray_tpu_torch/_build/`` keyed by a
-hash of the source and the flags, so a fresh checkout needs no build step
-and a stale binary never loads.
+hash of the source, every header in ``csrc/`` (``*.cuh``, which a source
+may include) and the flags, so a fresh checkout needs no build step and a
+stale binary never loads.
 
 Unlike ``ray_tpu/_private/native_loader.py``, a failed build raises, with
 the compiler's stderr: a kernel that does not build has no fallback.
@@ -46,8 +47,11 @@ def _source(name: str) -> str:
 
 def _library_path(name: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in (_source(name), *headers):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 

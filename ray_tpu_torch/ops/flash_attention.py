@@ -7,9 +7,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``, written by hand for
   ``_flash_fwd_kernel``; ``flash_attention_plain`` computes the same
   function, O and LSE, densely in fp32;
 - the backward kernels, ``ray_tpu_torch/csrc/flash_attention_bwd.cu``,
-  dQ for ``_flash_bwd_dq_kernel`` and dK/dV for ``_flash_bwd_dkv_kernel``;
-  ``flash_attention_bwd_plain`` computes the same gradients densely in
-  fp32, recomputing P from LSE.
+  dQ for ``_flash_bwd_dq_kernel`` and dK/dV for ``_flash_bwd_dkv_kernel``:
+  on bf16 inputs ``wgmma`` kernels fed by TMA, on fp32 inputs CUDA-core
+  FMA kernels; ``flash_attention_bwd_plain`` computes the same gradients
+  densely in fp32, recomputing P from LSE and rounding P and dS to bf16
+  where the bf16 kernels do.
 
 Dispatch is by where the tensors lie: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. Nothing
@@ -99,7 +101,13 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     autograd: (dQ, dK, dV) in the dtypes of q, k and v. P is recomputed
     from LSE as exp(q k^T * scale - LSE), masked to 0 where the forward
     masked it; dS = P * (dO V^T - D) * scale; dQ = dS K, dK = dS^T Q,
-    dV = P^T dO."""
+    dV = P^T dO.
+
+    For bf16 inputs, P and dS are rounded to bf16 before the three
+    products that take them, as the bf16 kernels round them for their
+    tensor-core operands; dS itself is formed from the fp32 P. The dtype
+    of the inputs decides this, with no parameter. For fp32 inputs
+    nothing is rounded."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, s_q, n, _ = q.shape
@@ -114,6 +122,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     delta = flash_attention_bwd_delta(o, do).reshape(b, n, s_q, 1)
     dp = torch.einsum("bqnh,bknh->bnqk", dof, vf)
     ds = p * (dp - delta) * sm_scale
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+        ds = ds.to(torch.bfloat16).float()
     dq = torch.einsum("bnqk,bknh->bqnh", ds, kf)
     dk = torch.einsum("bnqk,bqnh->bknh", ds, qf)
     dv = torch.einsum("bnqk,bqnh->bknh", p, dof)
@@ -185,6 +196,19 @@ def _check_kernel_inputs(q, k, v, **same_as_q) -> None:
         raise ValueError(f"the kernel needs 1 <= B*N <= {_MAX_GRID_Y} and "
                          f"non-empty sequences, got {tuple(q.shape)}, "
                          f"Sk={s_k}")
+
+
+def _check_tma_operands(**tensors) -> None:
+    """Raise on a bf16 operand that TMA cannot load: its base must be
+    16-byte aligned and its (batch, sequence, head) strides multiples of
+    8 elements (16 bytes). Nothing is copied to make it so."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name} must have a 16-byte aligned base and strides that "
+                f"are multiples of 8 elements for the bf16 kernels' TMA "
+                f"loads, got base % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())}")
 
 
 def _strides(*tensors):
@@ -265,7 +289,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dQ, dK, dV) from the CUDA kernels, same contract as
-    ``flash_attention_bwd_plain``. Raises on what the kernels do not take;
+    ``flash_attention_bwd_plain``: the ``wgmma`` kernels for bf16, the
+    CUDA-core kernels for fp32. Raises on what the kernels do not take;
     a dO whose head axis is not contiguous is copied once."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -274,10 +299,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     _check_kernel_inputs(q, k, v, o=o, do=do)
     b, s_q, n, _ = q.shape
     if (lse.device != q.device or lse.dtype != torch.float32
-            or lse.shape != (b * n, s_q) or not lse.is_contiguous()):
-        raise ValueError(f"lse must be contiguous float32 [B*N, Sq] = "
-                         f"{(b * n, s_q)} on q's device, got {lse.dtype} "
-                         f"{tuple(lse.shape)} on {lse.device}")
+            or lse.shape != (b * n, s_q) or not lse.is_contiguous()
+            or lse.data_ptr() % 16):
+        raise ValueError(f"lse must be contiguous, 16-byte aligned float32 "
+                         f"[B*N, Sq] = {(b * n, s_q)} on q's device, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    if q.dtype == torch.bfloat16:
+        _check_tma_operands(q=q, k=k, v=v, do=do)
+        if b * n * s_q >= 2 ** 31:
+            raise ValueError(f"the bf16 kernels index LSE and D with 32-bit "
+                             f"coordinates: B*N*Sq = {b * n * s_q}")
     delta = flash_attention_bwd_delta(o, do)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)

@@ -105,6 +105,52 @@ def test_bf16_gradients_within_twice_jax_own_gap():
         assert err <= 2 * gap, (err, gap)
 
 
+def _bwd_unrounded(q, k, v, o, lse, do, causal, sm_scale):
+    """The plain backward with no bf16 rounding of P or dS: the dense
+    formula as it stood before the bf16 kernels' operand rounding."""
+    b, s_q, n, _ = q.shape
+    s_k = k.shape[1]
+    s = torch.einsum("bqnh,bknh->bnqk", q, k) * sm_scale
+    p = torch.exp(s - lse.reshape(b, n, s_q, 1))
+    if causal:
+        q_pos = torch.arange(s_q)
+        k_pos = torch.arange(s_k)
+        p = p.masked_fill(q_pos[:, None] < k_pos[None, :], 0.0)
+    delta = pfa.flash_attention_bwd_delta(o, do).reshape(b, n, s_q, 1)
+    dp = torch.einsum("bqnh,bknh->bnqk", do, v)
+    ds = p * (dp - delta) * sm_scale
+    return (torch.einsum("bnqk,bknh->bqnh", ds, k),
+            torch.einsum("bnqk,bqnh->bknh", ds, q),
+            torch.einsum("bnqk,bqnh->bknh", p, do))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_rounds_only_bf16(causal):
+    """fp32 inputs: the plain backward is bit for bit the unrounded dense
+    formula. bf16 inputs: it departs from that formula, by the rounding
+    of P and dS to bf16 that the bf16 kernels make."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(96, n=2, seed=4))
+    do = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = pfa.flash_attention_plain(q, k, v, causal)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    got = pfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    want = _bwd_unrounded(q, k, v, o, lse, do, causal, scale)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+    qb, kb, vb, ob, dob = (t.bfloat16() for t in (q, k, v, o, do))
+    _, lse_b = pfa.flash_attention_plain(qb, kb, vb, causal)
+    got = pfa.flash_attention_bwd_plain(qb, kb, vb, ob, lse_b, dob, causal)
+    unrounded = _bwd_unrounded(*(t.float() for t in (qb, kb, vb, ob)), lse_b,
+                               dob.float(), causal, scale)
+    for g, w in zip(got, unrounded):
+        assert g.dtype == torch.bfloat16
+        assert not torch.equal(g, w.bfloat16())
+        rel = (g.float() - w).norm() / w.norm()
+        assert rel.item() < 1e-2
+
+
 def test_backward_dispatch_returns_no_grad_for_options():
     """``causal`` and ``sm_scale`` get no gradient; q, k and v get theirs
     in their own dtype and shape."""

@@ -97,10 +97,96 @@ def test_backward_kernels_match_plain_fp32(cuda, causal, s, h):
         torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
 
 
+BF16_GRAD_REL = 1e-2   # |dg| / |g_plain| per gradient, compared in fp32
+BF16_TILE_REL = 2e-2   # the same, for the worst 64-row tile of any head
+
+
+def _worst_tile_rel(g, w, rows=64):
+    """Largest |g - w| / |w| over the 64-row tiles of each (b, n) head."""
+    d, w = g.float() - w.float(), w.float()
+    worst = 0.0
+    for r0 in range(0, g.shape[1], rows):
+        num = d[:, r0:r0 + rows].norm(dim=(1, 3))
+        den = w[:, r0:r0 + rows].norm(dim=(1, 3)).clamp_min(1e-30)
+        worst = max(worst, (num / den).max().item())
+    return worst
+
+
+def _assert_bf16_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g).all())
+        rel = (g.float() - w.float()).norm() / w.float().norm()
+        assert rel.item() <= BF16_GRAD_REL
+        assert _worst_tile_rel(g, w) <= BF16_TILE_REL
+
+
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("s", [96, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_kernels_match_plain_bf16(cuda, causal, s, h):
+    """The wgmma kernels against the plain backward, which rounds P and dS
+    to bf16 where they do: relative norm per gradient and per 64-row tile
+    of each head, compared in fp32."""
+    args = _bwd_inputs(cuda, (2, s, 3, h), torch.bfloat16, causal)
+    _assert_bf16_close(fa.flash_attention_bwd_cuda(*args, causal),
+                       fa.flash_attention_bwd_plain(*args, causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k", [(160, 96), (96, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_kernels_match_plain_unequal_lengths(cuda, causal, s_q, s_k,
+                                                      dtype):
+    """Sq != Sk, ragged both ways; with Sk > Sq and the top-left causal
+    mask the last key tiles see no query and get zero gradients."""
+    gen = cuda
+    q, do = (torch.randn((2, s_q, 3, 128), generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((2, s_k, 3, 128), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    o, lse = fa.flash_attention_plain(q, k, v, causal)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    if causal and s_k > s_q:
+        for g in got[1:]:
+            assert not g[:, s_q:].any()
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
+    else:
+        _assert_bf16_close(got, want)
+
+
+def test_backward_kernels_bf16_repeat_bit_identical(cuda):
+    """No atomics: two bf16 runs at the flagship shape agree bit for bit."""
+    args = _bwd_inputs(cuda, (4, 2048, 16, 128), torch.bfloat16, True)
+    first = fa.flash_attention_bwd_cuda(*args, True)
+    second = fa.flash_attention_bwd_cuda(*args, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_backward_kernels_reject_what_tma_cannot_load(cuda):
+    """bf16 operands go in by TMA: a base off 16 bytes, or a stride that
+    is not a multiple of 8 elements, raises; nothing is copied."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, (1, 64, 2, 64), torch.bfloat16,
+                                      True)
+    padded = torch.zeros((1, 64, 2, 72), device="cuda", dtype=torch.bfloat16)
+    shifted = padded[..., 1:65]           # strides fine, base off 2 bytes
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="base % 16 = 2"):
+        fa.flash_attention_bwd_cuda(shifted, k, v, o, lse, do)
+    odd = torch.zeros((1, 64, 2, 65), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"strides \(8320, 130, 65, 1\)"):
+        fa.flash_attention_bwd_cuda(q, k, odd[..., :64], o, lse, do)
+
+
 def test_backward_kernels_match_plain_bf16_strided(cuda):
     """bf16, ragged S, q/k/v views of one fused [B,S,3,N,H] and a dO whose
-    head axis is not contiguous. Bound: relative norm 1e-2 per gradient,
-    compared in fp32 (both sides see the same bf16 inputs)."""
+    head axis is not contiguous. Bound: relative norm 1e-2 per gradient
+    and 2e-2 per 64-row tile, compared in fp32 (both sides see the same
+    bf16 inputs)."""
     qkv = torch.randn((2, 200, 3, 4, 128), generator=cuda,
                       device="cuda").to(torch.bfloat16)
     q, k, v = qkv.unbind(dim=2)
@@ -110,10 +196,7 @@ def test_backward_kernels_match_plain_bf16_strided(cuda):
     do_strided = do.transpose(-1, -2).contiguous().transpose(-1, -2)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do_strided, True)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
-    for g, w in zip(got, want):
-        assert g.dtype == torch.bfloat16
-        rel = (g.float() - w.float()).norm() / w.float().norm()
-        assert rel.item() <= 1e-2
+    _assert_bf16_close(got, want)
 
 
 def test_backward_goes_through_kernels(cuda):

@@ -61,3 +61,15 @@ def test_missing_nvcc_raises(workdir, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(workdir))
     with pytest.raises(RuntimeError, match="nvcc was not found"):
         nl.build(["k"])
+
+
+def test_header_change_rebuilds(workdir):
+    """A source may include any ``csrc/*.cuh``: editing one, or adding
+    one, gives every library a new path, so the next build recompiles."""
+    first = nl._library_path("k")
+    (workdir / "csrc" / "h.cuh").write_text("// helpers\n")
+    with_header = nl._library_path("k")
+    (workdir / "csrc" / "h.cuh").write_text("// helpers, edited\n")
+    edited = nl._library_path("k")
+    assert len({first, with_header, edited}) == 3
+    assert nl._library_path("k") == edited     # same files: same path
