@@ -79,6 +79,13 @@
 //   no mask arithmetic; tiles past the diagonal are never loaded; the
 //   CTAs with the most causal work are launched first.
 //
+// Head dims. Each kernel has two instances, for tiles D = 64 and D = 128
+// columns wide; a head dim H <= 128 runs on the smaller D >= H, with the
+// true H passed at run time. Columns at or past H load as zeros (the TMA
+// map's extent is H; the fp32 staging masks them), so they add nothing to
+// any product over H, and stores skip them: no padded copy is made, as the
+// TPU code pads by _pad_head. The bf16 kernels take H a multiple of 8.
+//
 // Layout: q, o, dO, dQ [B, Sq, N, H] and k, v, dK, dV [B, Sk, N, H], read
 // and written by element strides (the last axis contiguous), so the
 // caller makes no transposed or padded copy; for bf16 the base must be
@@ -128,15 +135,15 @@ __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
 template <int D>
 __host__ __device__ constexpr int ld() { return D + 4; }
 
-// rows x D tile of rows [row0, row0 + rows) of one head into shared memory
-// as fp32, zero past `len`.
+// 64 x D tile of rows [row0, row0 + 64) of one head into shared memory
+// as fp32, zero past `len` rows and `h` columns.
 template <typename T, int D>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long row_stride,
-                                           int row0, int len) {
+                                           int row0, int len, int h) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
     const int r = idx / D, d = idx % D;
     const int row = row0 + r;
-    dst[r * ld<D>() + d] = row < len ? load_f32(src + row * row_stride + d) : 0.f;
+    dst[r * ld<D>() + d] = row < len && d < h ? load_f32(src + row * row_stride + d) : 0.f;
   }
 }
 
@@ -190,10 +197,11 @@ __device__ __forceinline__ void accumulate(const float* w, const float* x, float
   }
 }
 
-// Rows ty*4 + i of a [64][D] output tile from a thread's registers.
+// Rows ty*4 + i of a [64][D] output tile from a thread's registers, the
+// columns below `h` only.
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, long long row_stride, int row0, int len,
-                                           int ty, int tx, float acc[4][D / 16]) {
+                                           int h, int ty, int tx, float acc[4][D / 16]) {
   constexpr int G = D / 64;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -203,7 +211,10 @@ __device__ __forceinline__ void store_rows(T* dst, long long row_stride, int row
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store_from_f32(out + g * 64 + tx * 4 + e, acc[i][g * 4 + e]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = g * 64 + tx * 4 + e;
+        if (col < h) store_from_f32(out + col, acc[i][g * 4 + e]);
+      }
   }
 }
 
@@ -225,10 +236,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int n_heads, int sq, int sk, Strides qs,
+                    T* __restrict__ dq, int n_heads, int sq, int sk, int h, Strides qs,
                     Strides ks, Strides vs, Strides dos, Strides dqs,
                     float sm_scale, int causal) {
-  static_assert(D % 64 == 0, "head dim must be a multiple of 64");
+  static_assert(D % 64 == 0, "tiles are a multiple of 64 columns wide");
   constexpr int LD = ld<D>();
 
   extern __shared__ float4 smem4[];
@@ -249,8 +260,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * ks.b + n * ks.n;
   const T* vb = v + b * vs.b + n * vs.n;
-  stage_rows<T, D>(sQ, q + b * qs.b + n * qs.n, qs.s, q0, sq);
-  stage_rows<T, D>(sDO, dout + b * dos.b + n * dos.n, dos.s, q0, sq);
+  stage_rows<T, D>(sQ, q + b * qs.b + n * qs.n, qs.s, q0, sq, h);
+  stage_rows<T, D>(sDO, dout + b * dos.b + n * dos.n, dos.s, q0, sq, h);
 
   float row_lse[4], row_delta[4];
 #pragma unroll
@@ -273,8 +284,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_iter; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the previous tile's sK, sV and sDS are no longer read
-    stage_rows<T, D>(sK, kb, ks.s, k0, sk);
-    stage_rows<T, D>(sV, vb, vs.s, k0, sk);
+    stage_rows<T, D>(sK, kb, ks.s, k0, sk, h);
+    stage_rows<T, D>(sV, vb, vs.s, k0, sk, h);
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
@@ -301,7 +312,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate<D>(sDS + ty * 4, sK + tx * 4, acc);  // dQ += dS K
   }
 
-  store_rows<T, D>(dq + b * dqs.b + n * dqs.n, dqs.s, q0, sq, ty, tx, acc);
+  store_rows<T, D>(dq + b * dqs.b + n * dqs.n, dqs.s, q0, sq, h, ty, tx, acc);
 }
 
 template <typename T, int D>
@@ -310,9 +321,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int n_heads, int sq,
-                     int sk, Strides qs, Strides ks, Strides vs, Strides dos,
+                     int sk, int h, Strides qs, Strides ks, Strides vs, Strides dos,
                      Strides dks, Strides dvs, float sm_scale, int causal) {
-  static_assert(D % 64 == 0, "head dim must be a multiple of 64");
+  static_assert(D % 64 == 0, "tiles are a multiple of 64 columns wide");
   constexpr int LD = ld<D>();
 
   extern __shared__ float4 smem4[];
@@ -336,8 +347,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* qb = q + b * qs.b + n * qs.n;
   const T* dob = dout + b * dos.b + n * dos.n;
-  stage_rows<T, D>(sK, k + b * ks.b + n * ks.n, ks.s, k0, sk);
-  stage_rows<T, D>(sV, v + b * vs.b + n * vs.n, vs.s, k0, sk);
+  stage_rows<T, D>(sK, k + b * ks.b + n * ks.n, ks.s, k0, sk, h);
+  stage_rows<T, D>(sV, v + b * vs.b + n * vs.n, vs.s, k0, sk, h);
 
   float acc_k[4][D / 16], acc_v[4][D / 16];
 #pragma unroll
@@ -352,8 +363,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = i0; it < n_q; ++it) {
     const int r0 = it * BQ;
     __syncthreads();  // the previous tile's sQ, sDO, sP and sDS are no longer read
-    stage_rows<T, D>(sQ, qb, qs.s, r0, sq);
-    stage_rows<T, D>(sDO, dob, dos.s, r0, sq);
+    stage_rows<T, D>(sQ, qb, qs.s, r0, sq, h);
+    stage_rows<T, D>(sDO, dob, dos.s, r0, sq, h);
     if (tid < BQ) {
       const int row = r0 + tid;
       const long long at = static_cast<long long>(bn) * sq + row;
@@ -392,14 +403,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate<D>(sDS + ty * 4, sQ + tx * 4, acc_k);   // dK += dS^T Q
   }
 
-  store_rows<T, D>(dk + b * dks.b + n * dks.n, dks.s, k0, sk, ty, tx, acc_k);
-  store_rows<T, D>(dv + b * dvs.b + n * dvs.n, dvs.s, k0, sk, ty, tx, acc_v);
+  store_rows<T, D>(dk + b * dks.b + n * dks.n, dks.s, k0, sk, h, ty, tx, acc_k);
+  store_rows<T, D>(dv + b * dvs.b + n * dvs.n, dvs.s, k0, sk, h, ty, tx, acc_v);
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int batch,
-              int n_heads, int sq, int sk, Strides qs, Strides ks, Strides vs,
+              int n_heads, int sq, int sk, int h, Strides qs, Strides ks, Strides vs,
               Strides dos, Strides dqs, float sm_scale, int causal,
               cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
@@ -412,7 +423,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), n_heads, sq, sk, qs, ks, vs, dos, dqs, sm_scale,
+      static_cast<T*>(dq), n_heads, sq, sk, h, qs, ks, vs, dos, dqs, sm_scale,
       causal);
   return cudaGetLastError();
 }
@@ -420,7 +431,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
-               int batch, int n_heads, int sq, int sk, Strides qs, Strides ks,
+               int batch, int n_heads, int sq, int sk, int h, Strides qs, Strides ks,
                Strides vs, Strides dos, Strides dks, Strides dvs,
                float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
@@ -433,7 +444,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), n_heads, sq, sk, qs, ks, vs,
+      static_cast<T*>(dk), static_cast<T*>(dv), n_heads, sq, sk, h, qs, ks, vs,
       dos, dks, dvs, sm_scale, causal);
   return cudaGetLastError();
 }
@@ -470,44 +481,6 @@ struct DkvLayout {
   static constexpr int BYTES = BARS + 3 * 8;
 };
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-// Accumulator element i of this thread: row (within the 64-row tile) and
-// column (within a 64-column score tile).
-__device__ __forceinline__ int acc_row(int i, int warp, int lane) {
-  return warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-}
-__device__ __forceinline__ int acc_col(int i, int lane) {
-  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-}
-
-// Rows [row0, row0 + 64) of one head from an m64nD accumulator, as bf16.
-template <int D>
-__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, long long row_stride, int row0,
-                                           int len, int warp, int lane, const float (&acc)[D / 2]) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + warp * 16 + lane / 4 + 8 * half;
-    if (row >= len) continue;
-    __nv_bfloat16* out = dst + row * row_stride + 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_kv_stage(uint8_t* smem, uint64_t* bar, const CUtensorMap* tk,
-                                              const CUtensorMap* tv, int b, int n, int row0) {
-  using L = DqLayout<D>;
-  mbar_arrive_expect_tx(bar, 2 * L::TILE);
-  tma_load_tile<D>(smem, tk, bar, b, n, row0);
-  tma_load_tile<D>(smem + L::TILE, tv, bar, b, n, row0);
-}
-
 template <int D>
 __device__ __forceinline__ void load_q_stage(uint8_t* smem, uint8_t* stats, uint64_t* bar,
                                              const CUtensorMap* tq, const CUtensorMap* tdo,
@@ -529,9 +502,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int n_heads, int sq, int sk, Strides dqs,
-                   float sm_scale, int causal) {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+                   __nv_bfloat16* __restrict__ dq, int n_heads, int sq, int sk, int h,
+                   Strides dqs, float sm_scale, int causal) {
+  static_assert(D == 64 || D == 128, "tiles 64 or 128 columns wide");
   using L = DqLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -554,11 +527,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_arrive_expect_tx(bar_qdo, 2 * L::TILE);
-    tma_load_tile<D>(smem + L::Q, &tq, bar_qdo, b, n, q0);
-    tma_load_tile<D>(smem + L::DO, &tdo, bar_qdo, b, n, q0);
+    tma_load_tile_pair<D>(smem + L::Q, &tq, &tdo, bar_qdo, b, n, q0);
     for (int j = 0; j < 2 && j < n_iter; ++j)
-      load_kv_stage<D>(smem + L::KV + 2 * j * L::TILE, bar_kv + j, &tk, &tv, b, n, j * TILE_ROWS);
+      tma_load_tile_pair<D>(smem + L::KV + 2 * j * L::TILE, &tk, &tv, bar_kv + j, b, n,
+                            j * TILE_ROWS);
   }
 
   // LSE (in log2 units) and D of this thread's two rows.
@@ -628,11 +600,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
     __syncthreads();  // every warp has read this stage
     if (tid == 0 && j + 2 < n_iter)
-      load_kv_stage<D>(smem + L::KV + 2 * stage * L::TILE, bar_kv + stage, &tk, &tv, b, n,
-                       (j + 2) * TILE_ROWS);
+      tma_load_tile_pair<D>(smem + L::KV + 2 * stage * L::TILE, &tk, &tv, bar_kv + stage, b, n,
+                            (j + 2) * TILE_ROWS);
   }
 
-  store_tile<D>(dq + b * dqs.b + n * dqs.n, dqs.s, q0, sq, warp, lane, acc);
+  store_tile<D>(dq + b * dqs.b + n * dqs.n, dqs.s, q0, sq, h, warp, lane, acc);
 }
 
 // dK and dV for one 64-key tile of one head, on transposed scores:
@@ -645,9 +617,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tlse,
                     const __grid_constant__ CUtensorMap tdelta, __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int n_heads, int sq, int sk, Strides dks,
-                    Strides dvs, float sm_scale, int causal) {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+                    __nv_bfloat16* __restrict__ dv, int n_heads, int sq, int sk, int h,
+                    Strides dks, Strides dvs, float sm_scale, int causal) {
+  static_assert(D == 64 || D == 128, "tiles 64 or 128 columns wide");
   using L = DkvLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -673,9 +645,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_arrive_expect_tx(bar_kv, 2 * L::TILE);
-    tma_load_tile<D>(smem + L::K, &tk, bar_kv, b, n, k0);
-    tma_load_tile<D>(smem + L::V, &tv, bar_kv, b, n, k0);
+    tma_load_tile_pair<D>(smem + L::K, &tk, &tv, bar_kv, b, n, k0);
     for (int t = 0; t < 2 && t < n_iter; ++t)
       load_q_stage<D>(smem + L::QDO + 2 * t * L::TILE, smem + L::STATS + 512 * t, bar_q + t, &tq,
                       &tdo, &tlse, &tdelta, b, n, (i0 + t) * TILE_ROWS,
@@ -753,20 +723,20 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
                       stat_base + r0 + 2 * TILE_ROWS);
   }
 
-  store_tile<D>(dk + b * dks.b + n * dks.n, dks.s, k0, sk, warp, lane, acc_k);
-  store_tile<D>(dv + b * dvs.b + n * dvs.n, dvs.s, k0, sk, warp, lane, acc_v);
+  store_tile<D>(dk + b * dks.b + n * dks.n, dks.s, k0, sk, h, warp, lane, acc_k);
+  store_tile<D>(dv + b * dvs.b + n * dvs.n, dvs.s, k0, sk, h, warp, lane, acc_v);
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int batch, int n_heads, int sq, int sk, Strides qs,
-              Strides ks, Strides vs, Strides dos, Strides dqs, float sm_scale, int causal,
-              cudaStream_t stream) {
+              const void* delta, void* dq, int batch, int n_heads, int sq, int sk, int h,
+              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float sm_scale,
+              int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, D, qs.b, qs.s, qs.n) ||
-      !bshd_tensor_map(&tk, k, batch, sk, n_heads, D, ks.b, ks.s, ks.n) ||
-      !bshd_tensor_map(&tv, v, batch, sk, n_heads, D, vs.b, vs.s, vs.n) ||
-      !bshd_tensor_map(&tdo, dout, batch, sq, n_heads, D, dos.b, dos.s, dos.n))
+  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, h, qs.b, qs.s, qs.n) ||
+      !bshd_tensor_map(&tk, k, batch, sk, n_heads, h, ks.b, ks.s, ks.n) ||
+      !bshd_tensor_map(&tv, v, batch, sk, n_heads, h, vs.b, vs.s, vs.n) ||
+      !bshd_tensor_map(&tdo, dout, batch, sq, n_heads, h, dos.b, dos.s, dos.n))
     return cudaErrorInvalidValue;
   constexpr size_t smem = DqLayout<D>::BYTES + 1024;  // + alignment slack
   cudaError_t err = cudaFuncSetAttribute(
@@ -775,21 +745,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   const dim3 grid((sq + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads);
   flash_bwd_dq_wgmma<D><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), n_heads, sq, sk, dqs, sm_scale, causal);
+      static_cast<__nv_bfloat16*>(dq), n_heads, sq, sk, h, dqs, sm_scale, causal);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int batch, int n_heads, int sq, int sk,
-               Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+               int h, Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
                float sm_scale, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
   const long long n_stats = static_cast<long long>(batch) * n_heads * sq;
-  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, D, qs.b, qs.s, qs.n) ||
-      !bshd_tensor_map(&tk, k, batch, sk, n_heads, D, ks.b, ks.s, ks.n) ||
-      !bshd_tensor_map(&tv, v, batch, sk, n_heads, D, vs.b, vs.s, vs.n) ||
-      !bshd_tensor_map(&tdo, dout, batch, sq, n_heads, D, dos.b, dos.s, dos.n) ||
+  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, h, qs.b, qs.s, qs.n) ||
+      !bshd_tensor_map(&tk, k, batch, sk, n_heads, h, ks.b, ks.s, ks.n) ||
+      !bshd_tensor_map(&tv, v, batch, sk, n_heads, h, vs.b, vs.s, vs.n) ||
+      !bshd_tensor_map(&tdo, dout, batch, sq, n_heads, h, dos.b, dos.s, dos.n) ||
       !row_tensor_map(&tlse, static_cast<const float*>(lse), n_stats) ||
       !row_tensor_map(&tdelta, static_cast<const float*>(delta), n_stats))
     return cudaErrorInvalidValue;
@@ -800,7 +770,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   const dim3 grid((sk + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads);
   flash_bwd_dkv_wgmma<D><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, tlse, tdelta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), n_heads, sq, sk, dks, dvs, sm_scale, causal);
+      static_cast<__nv_bfloat16*>(dv), n_heads, sq, sk, h, dks, dvs, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -809,7 +779,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the wgmma
-// kernels). head_dim: 64 or 128. Strides in elements, (batch, sequence,
+// kernels). head_dim: 1 to 128 (a multiple of 8 for bfloat16), run on the
+// instance 64 or 128 columns wide. Strides in elements, (batch, sequence,
 // head) for each [B, S, N, H] tensor.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -825,13 +796,14 @@ extern "C" int flash_attention_bwd_dq(
   const Strides dos{do_sb, do_ss, do_sn}, dqs{dq_sb, dq_ss, dq_sn};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto launch) {
-    return launch(q, k, v, dout, lse, delta, dq, batch, n_heads, sq, sk, qs, ks, vs, dos, dqs,
-                  sm_scale, causal, st);
+    return launch(q, k, v, dout, lse, delta, dq, batch, n_heads, sq, sk, head_dim, qs, ks, vs,
+                  dos, dqs, sm_scale, causal, st);
   };
-  if (dtype == 0 && head_dim == 64) return run(launch_dq<float, 64>);
-  if (dtype == 0 && head_dim == 128) return run(launch_dq<float, 128>);
-  if (dtype == 1 && head_dim == 64) return run(wg::launch_dq<64>);
-  if (dtype == 1 && head_dim == 128) return run(wg::launch_dq<128>);
+  if (head_dim < 1 || head_dim > 128 || (dtype == 1 && head_dim % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = head_dim > 64;
+  if (dtype == 0) return wide ? run(launch_dq<float, 128>) : run(launch_dq<float, 64>);
+  if (dtype == 1) return wide ? run(wg::launch_dq<128>) : run(wg::launch_dq<64>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -851,12 +823,13 @@ extern "C" int flash_attention_bwd_dkv(
   const Strides dvs{dv_sb, dv_ss, dv_sn};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto launch) {
-    return launch(q, k, v, dout, lse, delta, dk, dv, batch, n_heads, sq, sk, qs, ks, vs, dos,
-                  dks, dvs, sm_scale, causal, st);
+    return launch(q, k, v, dout, lse, delta, dk, dv, batch, n_heads, sq, sk, head_dim, qs, ks,
+                  vs, dos, dks, dvs, sm_scale, causal, st);
   };
-  if (dtype == 0 && head_dim == 64) return run(launch_dkv<float, 64>);
-  if (dtype == 0 && head_dim == 128) return run(launch_dkv<float, 128>);
-  if (dtype == 1 && head_dim == 64) return run(wg::launch_dkv<64>);
-  if (dtype == 1 && head_dim == 128) return run(wg::launch_dkv<128>);
+  if (head_dim < 1 || head_dim > 128 || (dtype == 1 && head_dim % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = head_dim > 64;
+  if (dtype == 0) return wide ? run(launch_dkv<float, 128>) : run(launch_dkv<float, 64>);
+  if (dtype == 1) return wide ? run(wg::launch_dkv<128>) : run(wg::launch_dkv<64>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -63,10 +63,11 @@ inline EncodeTiledFn encode_tiled() {
 
 // Tensor map over a [B, S, N, H] bf16 tensor with element strides (sb,
 // ss, sn) and a contiguous head axis, read in boxes of 64 rows by 64
-// columns of one (b, n) head, 128-byte swizzled. Rows past S read as
-// zeros. TMA needs a 16-byte aligned base and strides that are multiples
-// of 16 bytes; the caller checks both. Returns false if the map is
-// refused.
+// columns of one (b, n) head, 128-byte swizzled. Rows past S and columns
+// past H (the true head dim, which may be less than the kernel's tile
+// width) read as zeros. TMA needs a 16-byte aligned base and strides that
+// are multiples of 16 bytes; the caller checks both. Returns false if the
+// map is refused.
 inline bool bshd_tensor_map(CUtensorMap* map, const void* base, int b, int s, int n, int h,
                             long long sb, long long ss, long long sn) {
   const EncodeTiledFn encode = encode_tiled();
@@ -167,6 +168,24 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* tile, const CUtensorMap* 
     tma_load_4d(tile + box * kBoxBytes, map, bar, box * kBoxCols, n, row0, b);
 }
 
+// Two 64-row tiles [64][D] (K and V, or Q and dO) of the same rows, the
+// second `tile_bytes` after the first, onto one barrier that expects both.
+template <int D>
+__device__ __forceinline__ void tma_load_tile_pair(uint8_t* tiles, const CUtensorMap* map_a,
+                                                   const CUtensorMap* map_b, uint64_t* bar, int b,
+                                                   int n, int row0) {
+  constexpr int tile_bytes = kBoxRows * D * 2;
+  mbar_arrive_expect_tx(bar, 2 * tile_bytes);
+  tma_load_tile<D>(tiles, map_a, bar, b, n, row0);
+  tma_load_tile<D>(tiles + tile_bytes, map_b, bar, b, n, row0);
+}
+
+// The first 1024-byte boundary at or after p (swizzled TMA boxes start on
+// one).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -230,6 +249,35 @@ template <int R>
 __device__ __forceinline__ void to_a_fragments(const float (&d)[R], uint32_t (&a)[R / 2]) {
 #pragma unroll
   for (int i = 0; i < R / 2; ++i) a[i] = pack_bf16x2(d[2 * i], d[2 * i + 1]);
+}
+
+// Row (within the 64-row tile) and column (within a 64-column score tile)
+// of accumulator element i of this thread, by the layout above.
+__device__ __forceinline__ int acc_row(int i, int warp, int lane) {
+  return warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+}
+
+// Rows [row0, row0 + 64) of one head from an m64nD accumulator, as bf16:
+// rows at or past `len` and columns at or past `h` (the true head dim, a
+// multiple of 8) are not written.
+template <int D>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, long long row_stride, int row0,
+                                           int len, int h, int warp, int lane,
+                                           const float (&acc)[D / 2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + warp * 16 + lane / 4 + 8 * half;
+    if (row >= len) continue;
+    __nv_bfloat16* out = dst + row * row_stride + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < h)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,

@@ -4,8 +4,9 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``, written by hand for
 ``sm_90a`` in place of its Pallas kernels:
 
 - the forward kernel, ``ray_tpu_torch/csrc/flash_attention.cu``, for
-  ``_flash_fwd_kernel``; ``flash_attention_plain`` computes the same
-  function, O and LSE, densely in fp32;
+  ``_flash_fwd_kernel``: on bf16 inputs a ``wgmma`` kernel fed by TMA, on
+  fp32 inputs a CUDA-core FMA kernel; ``flash_attention_plain`` computes
+  the same function, O and LSE, densely in fp32;
 - the backward kernels, ``ray_tpu_torch/csrc/flash_attention_bwd.cu``,
   dQ for ``_flash_bwd_dq_kernel`` and dK/dV for ``_flash_bwd_dkv_kernel``:
   on bf16 inputs ``wgmma`` kernels fed by TMA, on fp32 inputs CUDA-core
@@ -15,7 +16,9 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``, written by hand for
 
 Dispatch is by where the tensors lie: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. Nothing
-falls back from the one to the other.
+falls back from the one to the other. The kernels take every head dim up
+to 128 (for bf16, a multiple of 8), as the JAX package takes every head
+dim by padding it; they mask the columns past it and make no padded copy.
 
 Layout everywhere: [B, S, N, H].
 """
@@ -36,7 +39,7 @@ launches = 0            # forward
 launches_bwd_dq = 0     # backward, dQ
 launches_bwd_dkv = 0    # backward, dK and dV
 
-KERNEL_HEAD_DIMS = (64, 128)
+MAX_KERNEL_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535   # each kernel's grid is (tiles of S, B*N)
 _NEG = -1e30          # the masked logit, as in the JAX package
@@ -189,9 +192,9 @@ def _check_kernel_inputs(q, k, v, **same_as_q) -> None:
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
-    if h not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, "
-                         f"got {h}")
+    if not 1 <= h <= MAX_KERNEL_HEAD_DIM:
+        raise ValueError(f"the kernels take head dims up to "
+                         f"{MAX_KERNEL_HEAD_DIM}, got {h}")
     if min(b, s_q, s_k, n) == 0 or b * n > _MAX_GRID_Y:
         raise ValueError(f"the kernel needs 1 <= B*N <= {_MAX_GRID_Y} and "
                          f"non-empty sequences, got {tuple(q.shape)}, "
@@ -200,9 +203,15 @@ def _check_kernel_inputs(q, k, v, **same_as_q) -> None:
 
 def _check_tma_operands(**tensors) -> None:
     """Raise on a bf16 operand that TMA cannot load: its base must be
-    16-byte aligned and its (batch, sequence, head) strides multiples of
-    8 elements (16 bytes). Nothing is copied to make it so."""
+    16-byte aligned, its (batch, sequence, head) strides multiples of 8
+    elements (16 bytes), and its head dim a multiple of 8 (whole 16-byte
+    pieces of a row, which the kernels store in pairs). Nothing is copied
+    to make it so."""
     for name, t in tensors.items():
+        if t.shape[-1] % 8:
+            raise ValueError(
+                f"{name} has head dim {t.shape[-1]}; the bf16 kernels take "
+                f"head dims that are multiples of 8")
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError(
                 f"{name} must have a 16-byte aligned base and strides that "
@@ -219,11 +228,15 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                          sm_scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, LSE) from the CUDA kernel, same contract as
-    ``flash_attention_plain``. Raises on what the kernel does not take."""
+    ``flash_attention_plain``: the ``wgmma`` kernel for bf16, which rounds
+    P to bf16 for P V, the CUDA-core kernel for fp32. Raises on what the
+    kernel does not take; nothing is copied."""
     global launches
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     _check_kernel_inputs(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_tma_operands(q=q, k=k, v=v)
     b, s_q, n, h = q.shape
     s_k = k.shape[1]
     out = torch.empty((b, s_q, n, h), dtype=q.dtype, device=q.device)
@@ -349,12 +362,14 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: Optional[float] = None,
-                    block_q: int = 128, block_k: int = 128):
+                    block_q: int = 128, block_k: int = 128,
+                    interpret: Optional[bool] = None):
     """Fused attention. [B,S,N,H] -> [B,S,N,H].
 
-    ``block_q`` and ``block_k`` keep the JAX package's signature. They do
-    not change the result; the Hopper kernel's tiles are fixed by its
-    shared-memory layout, and the plain version has no blocks.
+    ``block_q``, ``block_k`` and ``interpret`` keep the JAX package's
+    signature. They do not change the result: the Hopper kernels' tiles are
+    fixed by their shared-memory layout, the plain version has no blocks,
+    and where the tensors lie decides between kernel and plain version.
     """
-    del block_q, block_k
+    del block_q, block_k, interpret
     return _FlashAttention.apply(q, k, v, causal, sm_scale)

@@ -9,6 +9,7 @@ JAX package's forward tolerance (tests/test_attention.py).
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,17 @@ jfa = importlib.import_module("ray_tpu.ops.flash_attention")
 pfa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 TOL = 2e-5
+GRAD_TOL = 2e-4   # the JAX package's gradient tolerance
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Cap torch's intra-op threads so that this file does not starve the
+    timing-sensitive multi-process tests running beside it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 def _qkv(s, b=2, n=2, h=64, s_k=None, seed=0):
@@ -99,3 +111,43 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     o, lse = pfa.flash_attention_plain(q, k, v)
     with pytest.raises(ValueError, match="CUDA device"):
         pfa.flash_attention_bwd_cuda(q, k, v, o, lse, torch.ones_like(o))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_takes_the_reference_signature(causal):
+    """All eight arguments positionally, as tests/test_attention.py calls
+    the JAX package's ``flash_attention``; ``interpret`` changes
+    nothing."""
+    q, k, v = _qkv(96, n=3, seed=3)
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal, None, 64, 64, True)
+    out = pfa.flash_attention(*_torch(q, k, v), causal, None, 64, 64, True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("h", [16, 32, 96])
+def test_plain_matches_jax_at_other_head_dims(h):
+    """Head dims other than 64 and 128, which the Pallas kernels pad to
+    128 lanes (``_pad_head``): the plain forward against ``_flash_fwd``
+    (O and LSE, 2e-5) and the plain backward against ``jax.grad`` through
+    the kernels (2e-4), ragged S, causal."""
+    q, k, v = _qkv(96, b=1, n=2, h=h, seed=4)
+    scale = 1.0 / np.sqrt(h)
+    o, lse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            True, scale, 64, 64, True)
+    po, plse = pfa.flash_attention_plain(*_torch(q, k, v), True)
+    np.testing.assert_allclose(po.numpy(), np.asarray(o), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(plse.numpy(), np.asarray(lse)[:, :96],
+                               atol=TOL, rtol=TOL)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, True, None, 64, 64, True)
+        return jnp.sum(out ** 2)
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    do = 2 * po
+    got = pfa.flash_attention_bwd_plain(*_torch(q, k, v), po, plse, do, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL)

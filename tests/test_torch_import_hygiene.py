@@ -14,6 +14,16 @@ SOURCES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Cap torch's intra-op threads so that this file does not starve the
+    timing-sensitive multi-process tests running beside it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
     return root.startswith("jax") or root == "ray_tpu"

@@ -7,8 +7,19 @@ import os
 import stat
 
 import pytest
+import torch
 
 nl = importlib.import_module("ray_tpu_torch._private.native_loader")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Cap torch's intra-op threads so that this file does not starve the
+    timing-sensitive multi-process tests running beside it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 def _fake_nvcc(tmp_path, body):

@@ -30,6 +30,16 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Cap torch's intra-op threads so that this file does not starve the
+    timing-sensitive multi-process tests running beside it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _configs(dtype="float32", **kw):
     jdt, tdt = DTYPES[dtype]
     return (jt.TransformerConfig(**TINY, dtype=jdt, **kw),
