@@ -26,9 +26,12 @@ Phases, each fatal on failure:
    of each head; two bf16 runs at the flagship shape must agree bit for
    bit. Then timed with the D computation, the plain backward and the
    library's backward, with each kernel's TFLOP/s and share of its bound.
-4. Head dims: forward and backward kernels at H = 16, 32 and 96 (run on
-   the instance of the next width up, columns past H masked), fp32 and
-   bf16, against the plain versions under the same bounds.
+4. Head dims: forward and backward kernels at H = 16, 32, 96, 160 and
+   256 (run on the instance of the next width up, 64, 128 or 256 columns,
+   columns past H masked), fp32 and bf16, and bf16 at H = 20 and 40 (a
+   copy padded to a multiple of 8), against the plain versions under the
+   same bounds. Then the 256-column kernels timed at the flagship's B and
+   S with H = 256 (N = 8, the same d_model).
 5. Memory: peak device memory of a kernel-path attention forward and
    backward grows linearly in S (no S x S tensor).
 6. Serving: the flagship transformer (671M parameters, random weights from
@@ -43,6 +46,19 @@ Phases, each fatal on failure:
    traced with torch.profiler.
 8. Training parity: one gradient of the loss at batch 1 x 2048 through the
    kernels, held against the plain attention path in bf16 and in fp32.
+9. Scheduler: the device programs of ``ray_tpu_torch._private.scheduler``
+   at the scheduling benchmark's shape (bench.py:20-47: 10,000 nodes x 4
+   resources, 8 classes, 1,000,000 tasks; 512 bundles; 64 groups x 8
+   bundles with k = 128). Each kernel (schedule_classes, pg_pack,
+   pg_pack_batch) held against its plain version exactly, then timed by
+   CUDA events beside the plain version on the card and the launch floor.
+   Then the main path, with the launch counts set to 0 just before it:
+   ``TpuSchedulingPolicy.schedule_dense`` with the host expansion to
+   per-task nodes (tasks/s), ``schedule_batch`` of 4,096 requests over a
+   ClusterResourceManager of 1,000 nodes through
+   ``CompositeSchedulingPolicy(default_policy())``, and
+   ``PgKernelSolver.solve`` / ``solve_many`` over the 10,000-node cluster
+   (bundles/s). No node oversubscribed; placed equals admitted.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
@@ -52,6 +68,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib
 import json
@@ -69,6 +86,12 @@ native_loader = importlib.import_module("ray_tpu_torch._private.native_loader")
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 tfm = importlib.import_module("ray_tpu_torch.models.transformer")
 trn = importlib.import_module("ray_tpu_torch.models.training")
+tp = importlib.import_module("ray_tpu_torch._private.scheduler.tpu_policy")
+pk = importlib.import_module("ray_tpu_torch._private.scheduler.pg_kernel")
+spol = importlib.import_module("ray_tpu_torch._private.scheduler.policy")
+sres = importlib.import_module("ray_tpu_torch._private.scheduler.resources")
+swl = importlib.import_module("ray_tpu_torch._private.scheduler.workload")
+sids = importlib.import_module("ray_tpu_torch._private.ids")
 
 # Tolerances, fixed before the first run on the card.
 FP32_O_TOL = 2e-5     # abs and rel: the JAX package's forward bound; TF32 off
@@ -94,7 +117,10 @@ FLAGSHIP_ATTN = (4, 2048, 16, 128)   # B, S, N, H at the flagship width
 N_REQUESTS, BATCH, SEQ = 8, 4, 2048
 TRAIN_STEPS = 6
 MEM_SEQS = (1024, 2048, 4096)        # B1 N16 H128 bf16
-OTHER_HEAD_DIMS = (16, 32, 96)
+OTHER_HEAD_DIMS = (16, 32, 96, 160, 256)
+ODD_BF16_HEAD_DIMS = (20, 40)         # bf16 H % 8 != 0: padded copies
+WIDE_HEAD_ATTN = (4, 2048, 8, 256)   # B, S, N, H: the flagship's d_model
+SCHED_POLICY_NODES, SCHED_POLICY_REQUESTS = 1000, 4096
 TOP_OPS = 12                         # device operations listed per trace
 # Kinds of device operation in a trace, by a piece of the kernel's name
 # in lower case; the first kind that matches takes it. Every kernel of
@@ -350,8 +376,9 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
     print(f"device: {name} (count {count})")
-    print(smi.strip().splitlines()[0])
+    print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -362,7 +389,7 @@ def phase_device():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    return name, count
+    return name, count, card
 
 
 def phase_kernels():
@@ -433,30 +460,84 @@ def phase_kernels():
 
 def phase_head_dims():
     """Forward and backward kernels at head dims other than 64 and 128,
-    against the plain versions, fp32 and bf16, causal and not."""
+    against the plain versions, fp32 and bf16, causal and not; then the
+    256-column instances timed at WIDE_HEAD_ATTN, bf16, causal."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    for h in OTHER_HEAD_DIMS:
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
-                q, k, v, do = (torch.randn((2, 160, 3, h), generator=gen,
-                                           device=DEVICE).to(dtype)
-                               for _ in range(4))
-                what = f"H={h} causal={causal} S=160"
-                got = fa.flash_attention_cuda(q, k, v, causal)
-                want = fa.flash_attention_plain(q, k, v, causal)
-                check(got[0].shape == q.shape, f"O is {tuple(got[0].shape)} "
-                      f"at {what}")
-                if dtype == torch.float32:
-                    check_fp32_forward(got, want, what)
-                else:
-                    check_bf16_forward(got, want, what)
-                o, lse = want
-                grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
-                ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-                if dtype == torch.float32:
-                    check_fp32_grads(grads, ref, what)
-                else:
-                    check_bf16_grads(grads, ref, what)
+    cases = [(h, dtype) for h in OTHER_HEAD_DIMS
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(h, torch.bfloat16) for h in ODD_BF16_HEAD_DIMS]
+    for h, dtype in cases:
+        for causal in (True, False):
+            q, k, v, do = (torch.randn((2, 160, 3, h), generator=gen,
+                                       device=DEVICE).to(dtype)
+                           for _ in range(4))
+            what = f"H={h} {str(dtype)[6:]} causal={causal} S=160"
+            got = fa.flash_attention_cuda(q, k, v, causal)
+            want = fa.flash_attention_plain(q, k, v, causal)
+            check(got[0].shape == q.shape, f"O is {tuple(got[0].shape)} "
+                  f"at {what}")
+            if dtype == torch.float32:
+                check_fp32_forward(got, want, what)
+            else:
+                check_bf16_forward(got, want, what)
+            o, lse = want
+            grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+            check(all(g.shape == q.shape for g in grads),
+                  f"gradient shapes at {what}")
+            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+            if dtype == torch.float32:
+                check_fp32_grads(grads, ref, what)
+            else:
+                check_bf16_grads(grads, ref, what)
+
+    b, s, n, h = WIDE_HEAD_ATTN
+    q, k, v, do = (torch.randn((b, s, n, h), generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_cuda(q, k, v, True)
+    check_bf16_forward((o, lse), fa.flash_attention_plain(q, k, v, True),
+                       f"causal {WIDE_HEAD_ATTN}")
+    check_bf16_grads(fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True),
+                     fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+                     f"causal {WIDE_HEAD_ATTN}")
+    scale = 1.0 / math.sqrt(h)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    times = {
+        "fwd": time_ms(lambda: fa.flash_attention_cuda(q, k, v, True),
+                       iters=10),
+        "dq": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, v, do, lse, delta, True, scale, dq), iters=10),
+        "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, True, scale, dk, dv), iters=10)}
+    bounds = {"fwd": flash_bound_ms(b, s, s, n, h, True, "bfloat16", 2)[0]}
+    for kern in ("dq", "dkv"):
+        bounds[kern] = flash_bwd_bound_ms(kern, b, s, s, n, h, True,
+                                          "bfloat16", 2)[0]
+    print(f"head dim 256 at {WIDE_HEAD_ATTN} bf16 causal: " + ", ".join(
+        f"{kern} {times[kern]:.4f} ms (bound {bounds[kern]:.4f} ms, "
+        f"{bounds[kern] / times[kern]:.3f} of it)" for kern in times))
+    return {"shape": list(WIDE_HEAD_ATTN), "ms": times, "bound_ms": bounds}
+
+
+def sdpa_bwd_trace_ms(qt, kt, vt, dot, iters=10):
+    """SDPA's backward alone: the device time of the kernels that
+    ``torch.autograd.grad`` launches through SDPA's causal backward,
+    summed from a torch.profiler trace that holds only the backward
+    calls, per call. Falls to None when the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    outs = [sdpa(qt, kt, vt, is_causal=True) for _ in range(iters + 1)]
+    torch.autograd.grad(outs[0], (qt, kt, vt), dot)     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for out in outs[1:]:
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+        torch.cuda.synchronize()
+    device_ms = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    del outs
+    return device_ms / iters if device_ms > 0 else None
 
 
 def phase_backward_kernels():
@@ -536,7 +617,9 @@ def phase_backward_kernels():
 
     sdpa_fwd_ms = time_ms(sdpa_fwd, iters=20)
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters=20)
-    library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+    trace_ms = sdpa_bwd_trace_ms(qt, kt, vt, dot)
+    library_ms = (trace_ms if trace_ms is not None
+                  else sdpa_fwd_bwd_ms - sdpa_fwd_ms)
     bounds = {kern: flash_bwd_bound_ms(kern, b, s, s, n, h, True, "bfloat16",
                                        q.element_size())
               for kern in ("dq", "dkv")}
@@ -549,13 +632,15 @@ def phase_backward_kernels():
           f"{bounds['dq'][1]}), dK/dV kernel {dkv_ms:.4f} ms (bound "
           f"{bounds['dkv'][0]:.4f} ms, {bounds['dkv'][1]}), D "
           f"{delta_ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
-          f"backward {library_ms:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} "
-          f"- fwd {sdpa_fwd_ms:.4f})")
+          f"backward {library_ms:.4f} ms (by events: fwd+bwd "
+          f"{sdpa_fwd_bwd_ms:.4f} - fwd {sdpa_fwd_ms:.4f})")
     for kern, label in (("dq", "dQ"), ("dkv", "dK/dV")):
         print(f"flash bwd {label}: {tflops[kern]:.1f} TFLOP/s, "
               f"{bounds[kern][0] / times[kern]:.3f} of its bound")
     print(f"flash bwd dQ + dK/dV + D {pair_ms:.4f} ms against sdpa backward "
-          f"{library_ms:.4f} ms: {pair_ms / library_ms:.3f}x")
+          f"{library_ms:.4f} ms (its kernels alone, from the trace; fwd+bwd "
+          f"minus fwd by events: {sdpa_fwd_bwd_ms - sdpa_fwd_ms:.4f} ms): "
+          f"{pair_ms / library_ms:.3f}x")
     return {"dq": {"max_abs_err": abs_err["dQ"], "rel_err": rel_err["dQ"],
                    "tile_rel_err": tile_err["dQ"],
                    "ms": dq_ms, "tflops": tflops["dq"],
@@ -568,7 +653,11 @@ def phase_backward_kernels():
                     "bound_ms": bounds["dkv"][0],
                     "bound_by": bounds["dkv"][1]},
             "delta_ms": delta_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "library_is": ("SDPA causal backward, its kernels alone from a "
+                           "torch.profiler trace" if trace_ms is not None
+                           else "SDPA causal fwd+bwd minus fwd by events"),
+            "library_by_events_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms}
 
 
 def phase_memory():
@@ -716,6 +805,274 @@ def phase_training_parity(tokens):
             "loss_plain_bf16": loss_pb, "loss_plain_fp32": loss_pf}
 
 
+def scheduler_launch_counts():
+    return tp.launches, pk.launches_pack, pk.launches_pack_batch
+
+
+def reset_scheduler_launch_counts():
+    tp.launches = pk.launches_pack = pk.launches_pack_batch = 0
+
+
+def launch_floor_ms(iters=200):
+    """The least a launch costs here: the host round trip of one empty
+    kernel launch and a synchronize (median), and the device time of one
+    empty launch among back-to-back ones (CUDA events)."""
+    lib = pk._kernel_lib()
+    lib.scheduler_empty.argtypes = [ctypes.c_void_p]
+    lib.scheduler_empty.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        check(lib.scheduler_empty(stream) == 0, "empty launch failed")
+
+    trips = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        empty()
+        torch.cuda.synchronize()
+        trips.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(trips)), time_ms(empty, iters)
+
+
+def sched_cluster(w, n_nodes=None):
+    """A ClusterResourceManager of the benchmark's nodes (the first
+    ``n_nodes``), resources named as bench.py names them."""
+    names = ("CPU", "TPU", "memory", "custom")
+    cluster = sres.ClusterResourceManager()
+    for i in range(len(w.total) if n_nodes is None else n_nodes):
+        cluster.add_or_update_node(sids.NodeID.from_random(), sres.NodeResources(
+            total={r: float(w.total[i, j]) for j, r in enumerate(names)
+                   if w.total[i, j] > 0},
+            available={r: float(w.avail[i, j]) for j, r in enumerate(names)
+                       if w.total[i, j] > 0}))
+    return cluster, names
+
+
+def check_bundles_fit(cluster, assign, bundles, what):
+    """No node takes more of a resource than it has available."""
+    use = {}
+    for nid, b in zip(assign, bundles):
+        for r, v in b.items():
+            use[(nid, r)] = use.get((nid, r), 0.0) + v
+    over = [(nid, r) for (nid, r), v in use.items()
+            if v > cluster.get_node(nid).available.get(r, 0.0) + 1e-6]
+    check(not over, f"{what}: {len(over)} node resources oversubscribed")
+
+
+def phase_scheduler():
+    """The scheduler's device programs at the benchmark's shape: each
+    kernel exactly against its plain version, timed; then the main path
+    through the policy and the solver with the launch counts from 0."""
+    w = swl.workload(np.random.RandomState(42))
+    n, r = w.avail.shape
+    k = len(w.counts)
+    dev = torch.device(DEVICE)
+    avail, total, alive, demands = (torch.as_tensor(a).to(dev) for a in (
+        w.avail, w.total, w.alive, w.demands))
+    counts = torch.as_tensor(w.counts).to(dev)
+    prefs = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    thr = spol.get_config().scheduler_spread_threshold
+
+    # S1 against its plain version, on the same inputs.
+    want, want_avail = tp.schedule_classes_plain(avail.clone(), total, alive,
+                                                 demands, counts, prefs, thr)
+    got, got_avail = tp.schedule_classes_cuda(avail.clone(), total, alive,
+                                              demands, counts, prefs, thr)
+    torch.cuda.synchronize()
+    s1_equal = torch.equal(got, want) and torch.equal(got_avail, want_avail)
+    g = got.cpu().numpy()
+    placed = g[:, 0] + g[:, 5 + n:5 + 2 * n].sum(1) + g[:, 5 + 3 * n:].sum(1)
+    print(f"schedule_classes at {n} nodes x {r}, {k} classes, "
+          f"{int(w.counts.sum())} tasks: kernel == plain {s1_equal}; placed "
+          f"{int(placed.sum())}, admitted {int(g[:, 3].sum())}, fenced "
+          f"{int(g[:, 2].sum())}; least new avail "
+          f"{got_avail.min().item():.6g}")
+    check(s1_equal, "schedule_classes kernel differs from its plain version")
+    check(bool((got_avail >= -1e-6).all()), "a node is oversubscribed")
+    check(np.array_equal(placed, g[:, 3]), "placed != admitted")
+
+    # S2 and S3 against theirs.
+    pg_demands = torch.as_tensor(w.pg_demands).to(dev)
+    batch_demands = torch.as_tensor(w.batch_demands).to(dev)
+    valid = torch.ones(batch_demands.shape[:2], dtype=torch.bool, device=dev)
+    s2 = {mode: (pk.pack_cuda(avail, total, alive, pg_demands, mode),
+                 pk.pack_plain(avail, total, alive, pg_demands, mode))
+          for mode in pk.MODES}
+    s3 = {mode: (pk.pack_batch_cuda(avail, total, alive, batch_demands, valid,
+                                    mode, swl.PG_TOPK),
+                 pk.pack_batch_plain(avail, total, alive, batch_demands, valid,
+                                     mode, swl.PG_TOPK))
+          for mode in pk.MODES}
+    torch.cuda.synchronize()
+    for name, runs in (("pg_pack", s2), ("pg_pack_batch", s3)):
+        for mode, (kern, plain) in runs.items():
+            print(f"{name} {mode}: kernel == plain {torch.equal(kern, plain)}"
+                  f", all placed {bool(kern[..., -1].all())}")
+            check(torch.equal(kern, plain),
+                  f"{name} {mode} kernel differs from its plain version")
+            check(bool(kern[..., -1].all()), f"{name} {mode} left a bundle")
+
+    # Times on the card: kernel (CUDA events, avail refreshed before each
+    # schedule_classes launch, which updates it in place), plain version.
+    work = avail.clone()
+
+    def s1_kernel():
+        work.copy_(avail)
+        tp.schedule_classes_cuda(work, total, alive, demands, counts, prefs,
+                                 thr)
+
+    times = {
+        "schedule_classes": (time_ms(s1_kernel, 10), time_ms(
+            lambda: tp.schedule_classes_plain(avail.clone(), total, alive,
+                                              demands, counts, prefs, thr),
+            2, warmup=1)),
+        "pg_pack": (time_ms(lambda: pk.pack_cuda(
+            avail, total, alive, pg_demands, "spread"), 10), time_ms(
+            lambda: pk.pack_plain(avail, total, alive, pg_demands, "spread"),
+            2, warmup=1)),
+        "pg_pack_batch": (time_ms(lambda: pk.pack_batch_cuda(
+            avail, total, alive, batch_demands, valid, "spread",
+            swl.PG_TOPK), 10), time_ms(lambda: pk.pack_batch_plain(
+                avail, total, alive, batch_demands, valid, "spread",
+                swl.PG_TOPK), 2, warmup=1))}
+    trip_ms, empty_ms = launch_floor_ms()
+    f32 = 4
+    base_bytes = 2 * n * r * f32 + n                # avail, total, alive
+    nbytes = {
+        "schedule_classes": base_bytes + k * r * f32 + 2 * k * 4
+        + k * (4 * n + 5) * 4 + n * r * f32,        # + packed, new avail
+        "pg_pack": base_bytes + pg_demands.numel() * f32
+        + (pg_demands.shape[0] + 1) * 4,
+        "pg_pack_batch": base_bytes + batch_demands.numel() * f32
+        + valid.numel() + valid.shape[0] * (valid.shape[1] + 1) * 4}
+    launches_per_entry = {"schedule_classes": 1, "pg_pack": 1,
+                          "pg_pack_batch": 2}
+    rows = {}
+    for name, (kern_ms, plain_ms) in times.items():
+        bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        bound_ms = bytes_ms + launches_per_entry[name] * trip_ms
+        rows[name] = {"ms": kern_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bytes_bound_ms": bytes_ms,
+                      "launch_floor_ms": launches_per_entry[name] * trip_ms}
+        print(f"{name}: kernel {kern_ms * 1e3:.1f} us, plain on the card "
+              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us (bytes "
+              f"{bytes_ms * 1e3:.3f} us + {launches_per_entry[name]} x launch "
+              f"round trip {trip_ms * 1e3:.2f} us)")
+    print(f"launch floor: empty launch round trip {trip_ms * 1e3:.2f} us "
+          f"(host, median), {empty_ms * 1e3:.2f} us back to back (device)")
+
+    # The main path, counts from 0: the dense policy path with the host
+    # expansion, schedule_batch through the production composite, the
+    # placement-group solver.
+    pol = tp.TpuSchedulingPolicy()
+    composite = spol.default_policy()
+    adaptive = composite._inner
+    tp._device_rt_threads[adaptive.device].join(timeout=60)
+    cluster_small, names = sched_cluster(w, SCHED_POLICY_NODES)
+    rng = np.random.RandomState(SEED)
+    small_ids = [nid for nid, _ in cluster_small.nodes()]
+    requests = [spol.SchedulingRequest(
+        demand={"CPU": float(w.demands[c, 0]),
+                "memory": float(w.demands[c, 2]),
+                **({"TPU": float(w.demands[c, 1])} if w.demands[c, 1] else {})},
+        preferred_node=(small_ids[rng.randint(0, 16)] if i % 4 == 0
+                        else None))
+        for i, c in enumerate(rng.randint(0, k, SCHED_POLICY_REQUESTS))]
+    cluster_big, _ = sched_cluster(w)
+    solver = pk.PgKernelSolver()
+    pg_bundles = [{nm: float(v) for nm, v in zip(names, row) if v > 0}
+                  for row in w.pg_demands]
+    groups = [[{nm: float(v) for nm, v in zip(names, row) if v > 0}
+               for row in grp] for grp in w.batch_demands]
+    solver.solve(cluster_big, pg_bundles[:1], "SPREAD")   # builds the view
+    torch.cuda.synchronize()
+
+    reset_scheduler_launch_counts()
+    expand_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ds = pol.schedule_dense(w.avail, w.total, w.alive, w.demands,
+                                w.counts, np.full(k, -1, np.int32))
+        assigned = [np.repeat(o[t > 0], t[t > 0]) for kk in range(k)
+                    for o, t in ((ds.order[kk], ds.take_sorted[kk]),
+                                 (ds.order2[kk], ds.take2[kk]))]
+        n_assigned = sum(len(a) for a in assigned)
+        expand_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    results = composite.schedule_batch(cluster_small, requests)
+    batch_s = time.perf_counter() - t0
+    solve_s, many_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        assign = solver.solve(cluster_big, pg_bundles, "SPREAD")
+        solve_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        many = solver.solve_many(cluster_big, groups, "SPREAD")
+        many_s.append(time.perf_counter() - t0)
+    counts_run = scheduler_launch_counts()
+    print(f"scheduler main path launches (schedule_classes, pg_pack, "
+          f"pg_pack_batch): {counts_run}")
+    check(all(c > 0 for c in counts_run),
+          f"a scheduler kernel was not launched on the main path: "
+          f"{counts_run}")
+
+    check(n_assigned == int(ds.admitted.sum()),
+          f"expanded {n_assigned} tasks, admitted {int(ds.admitted.sum())}")
+    check(bool((ds.new_avail >= -1e-6).all()), "dense path oversubscribed")
+    placed_batch = sum(res.node_id is not None for res in results)
+    per_node = {}
+    for req, res in zip(requests, results):
+        if res.node_id is not None:
+            use = per_node.setdefault(res.node_id, {})
+            for rr, v in req.demand.items():
+                use[rr] = use.get(rr, 0.0) + v
+    check(all(v <= cluster_small.get_node(nid).available.get(rr, 0.0) + 1e-6
+              for nid, use in per_node.items() for rr, v in use.items()),
+          "schedule_batch oversubscribed a node")
+    check(assign is not None, "solve left the 512 bundles unplaced")
+    check_bundles_fit(cluster_big, assign, pg_bundles, "solve")
+    check(all(a is not None for a in many), "solve_many left a group")
+    for a, grp in zip(many, groups):
+        check_bundles_fit(cluster_big, a, grp, "solve_many")
+    tasks_s = n_assigned / min(expand_s)
+    out = {
+        "nodes": n, "resources": r, "classes": k,
+        "tasks": int(w.counts.sum()), "tasks_placed": n_assigned,
+        "tasks_per_s_with_expansion": tasks_s,
+        "dense_path_s": expand_s,
+        "schedule_batch": {"nodes": SCHED_POLICY_NODES,
+                           "requests": SCHED_POLICY_REQUESTS,
+                           "placed": placed_batch, "s": batch_s,
+                           "policy": type(adaptive).__name__},
+        "pg_solve": {"bundles": len(pg_bundles), "s": solve_s,
+                     "bundles_per_s": len(pg_bundles) / min(solve_s)},
+        "pg_solve_many": {"groups": len(groups),
+                          "bundles": sum(len(gg) for gg in groups),
+                          "s": many_s, "bundles_per_s": sum(
+                              len(gg) for gg in groups) / min(many_s)},
+        "kernel_entry_bundles_per_s": {
+            "pg_pack": len(pg_bundles) / (times["pg_pack"][0] * 1e-3),
+            "pg_pack_batch": valid.numel() / (times["pg_pack_batch"][0]
+                                              * 1e-3)},
+        "launch_round_trip_ms": trip_ms, "empty_launch_ms": empty_ms,
+        "launches": dict(zip(("schedule_classes", "pg_pack",
+                              "pg_pack_batch"), counts_run)),
+        "kernels": rows}
+    print(f"scheduler: {tasks_s:.1f} tasks/s with the host expansion "
+          f"({n_assigned} placed, best of {len(expand_s)}: "
+          f"{min(expand_s) * 1e3:.3f} ms); schedule_batch of "
+          f"{SCHED_POLICY_REQUESTS} over {SCHED_POLICY_NODES} nodes "
+          f"({type(adaptive).__name__}) {batch_s * 1e3:.3f} ms, "
+          f"{placed_batch} placed; solve {len(pg_bundles)} bundles "
+          f"{out['pg_solve']['bundles_per_s']:.1f} bundles/s; solve_many "
+          f"{len(groups)} x {len(groups[0])} "
+          f"{out['pg_solve_many']['bundles_per_s']:.1f} bundles/s; kernel "
+          f"entries {out['kernel_entry_bundles_per_s']['pg_pack']:.1f} and "
+          f"{out['kernel_entry_bundles_per_s']['pg_pack_batch']:.1f} "
+          f"bundles/s")
+    return out
+
+
 class Replica:
     """Plays a Serve replica of the flagship model: builds the forward
     once, runs it at construction, and answers each batch of requests
@@ -823,10 +1180,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    name, count = phase_device()
+    name, count, card = phase_device()
     flash = phase_kernels()
     bwd = phase_backward_kernels()
-    phase_head_dims()
+    wide_head = phase_head_dims()
     memory = phase_memory()
     serving, serving_launches = phase_serving()
     torch.cuda.empty_cache()
@@ -835,9 +1192,13 @@ def main() -> int:
     training["parity"] = phase_training_parity(tokens)
     training["memory_linear_in_s"] = memory
     train_launches = training["launches"]
+    torch.cuda.empty_cache()
+    scheduler = phase_scheduler()
 
-    print(json.dumps({"serving": serving}))
-    print(json.dumps({"training": training}))
+    print(json.dumps({"serving": serving, "card": card}))
+    print(json.dumps({"training": training, "card": card}))
+    print(json.dumps({"head_dim_256": wide_head, "card": card}))
+    print(json.dumps({"scheduler": scheduler, "card": card}))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{
@@ -874,9 +1235,33 @@ def main() -> int:
             "plain_is": "the whole plain backward (dQ, dK, dV)",
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": bwd["library_ms"],
-            "library_is": "SDPA causal fwd+bwd minus fwd (dQ, dK, dV)",
+            "library_is": bwd["library_is"],
             "delta_ms": bwd["delta_ms"],
             "variant": "bf16: wgmma + TMA; fp32: CUDA-core FMA",
+        })
+    sched_src = "ray_tpu/_private/scheduler"
+    for key, replaces, fn in (
+            ("schedule_classes", f"{sched_src}/tpu_policy.py:76",
+             "_schedule_classes_kernel"),
+            ("pg_pack", f"{sched_src}/pg_kernel.py:49", "_pack_kernel"),
+            ("pg_pack_batch", f"{sched_src}/pg_kernel.py:87",
+             "_pack_batch_kernel")):
+        k = scheduler["kernels"][key]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/scheduler.cu",
+            "replaces": replaces,
+            "replaces_fn": f"{replaces.split(':')[0]}::{fn} (jitted jnp)",
+            "launches": scheduler["launches"][key],
+            "max_abs_err": 0.0, "exact": True,
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": "bytes",
+            "bytes_bound_ms": k["bytes_bound_ms"],
+            "launch_floor_ms": k["launch_floor_ms"],
+            "library_ms": None,
+            "variant": "one CTA of 1024 threads"
+                       + (" (ranking), then one CTA per group"
+                          if key == "pg_pack_batch" else ""),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ Ported so far: the flagship transformer's forward (``models.transformer``)
 and training step (``models.training``), with attention through
 hand-written CUDA flash-attention kernels (``ops.flash_attention``): the
 forward in ``csrc/flash_attention.cu``, the dQ and dK/dV backward in
-``csrc/flash_attention_bwd.cu``. The parallel layer and the runtime are
-still to come.
+``csrc/flash_attention_bwd.cu``; and the scheduler's device programs
+(``_private.scheduler``: the class-fill policy and the placement-group
+packer) as CUDA kernels in ``csrc/scheduler.cu``. The parallel layer and
+the runtime are still to come.
 """

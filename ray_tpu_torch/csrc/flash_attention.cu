@@ -58,12 +58,16 @@
 //   tiles past the diagonal are never loaded; the query tiles with the
 //   most causal work are launched first.
 //
-// Head dims. Each variant has two instances, for tiles D = 64 and D = 128
-// columns wide; a head dim H <= 128 runs on the smaller D >= H, with the
-// true H passed at run time. Columns at or past H load as zeros (the TMA
-// map's extent is H; the fp32 staging masks them), so they add nothing to
-// q k^T or p v, and stores skip them: no padded copy is made, as the TPU
-// code pads by _pad_head. The bf16 kernel takes H a multiple of 8.
+// Head dims. Each variant has three instances, for tiles D = 64, 128 and
+// 256 columns wide; a head dim H <= 256 runs on the smallest D >= H, with
+// the true H passed at run time. Columns at or past H load as zeros (the
+// TMA map's extent is H; the fp32 staging masks them), so they add nothing
+// to q k^T or p v, and stores skip them: no padded copy is made, as the TPU
+// code pads by _pad_head. The bf16 kernel takes H a multiple of 8 (the
+// wrapper pads any other H to one). At D = 256 a CTA holds 200 KB of
+// shared memory (fp32) or 160 KB (bf16: Q, two stages of K and V) and the
+// bf16 O accumulator takes 128 registers a thread, so one CTA runs on an
+// SM; the O += P V product is two m64n128 wgmmas over the two halves.
 //
 // Layout: q/o [B, Sq, N, H] and k/v [B, Sk, N, H], read and written by
 // element strides (the last axis contiguous), so the caller makes no
@@ -111,7 +115,7 @@ constexpr size_t smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int n_heads, int sq, int sk, int h,
@@ -310,12 +314,12 @@ struct FwdLayout {
 // the online softmax in registers, O += P V (RS wgmma, V read MN-major),
 // over the KV tiles up to the diagonal.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                 float* __restrict__ lse, int n_heads, int sq, int sk, int h, Strides os,
                 float sm_scale, int causal) {
-  static_assert(D == 64 || D == 128, "tiles 64 or 128 columns wide");
+  static_assert(D == 64 || D == 128 || D == 256, "tiles 64, 128 or 256 columns wide");
   using L = FwdLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -466,8 +470,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the wgmma kernel).
-// head_dim: 1 to 128 (a multiple of 8 for bfloat16), run on the instance
-// 64 or 128 columns wide. Strides in elements, (batch, sequence, head) for
+// head_dim: 1 to 256 (a multiple of 8 for bfloat16), run on the instance
+// 64, 128 or 256 columns wide. Strides in elements, (batch, sequence, head) for
 // each [B, S, N, H] tensor.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -484,10 +488,13 @@ extern "C" int flash_attention_fwd(
     return launch_fn(q, k, v, o, lse, batch, n_heads, sq, sk, head_dim, qs, ks, vs, os,
                      sm_scale, causal, st);
   };
-  if (head_dim < 1 || head_dim > 128 || (dtype == 1 && head_dim % 8 != 0))
+  if (head_dim < 1 || head_dim > 256 || (dtype == 1 && head_dim % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = head_dim > 64;
-  if (dtype == 0) return wide ? run(launch<128>) : run(launch<64>);
-  if (dtype == 1) return wide ? run(wg::launch<128>) : run(wg::launch<64>);
+  if (dtype == 0)
+    return head_dim > 128 ? run(launch<256>) : head_dim > 64 ? run(launch<128>) : run(launch<64>);
+  if (dtype == 1)
+    return head_dim > 128  ? run(wg::launch<256>)
+           : head_dim > 64 ? run(wg::launch<128>)
+                           : run(wg::launch<64>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -79,12 +79,22 @@
 //   no mask arithmetic; tiles past the diagonal are never loaded; the
 //   CTAs with the most causal work are launched first.
 //
-// Head dims. Each kernel has two instances, for tiles D = 64 and D = 128
-// columns wide; a head dim H <= 128 runs on the smaller D >= H, with the
-// true H passed at run time. Columns at or past H load as zeros (the TMA
-// map's extent is H; the fp32 staging masks them), so they add nothing to
-// any product over H, and stores skip them: no padded copy is made, as the
-// TPU code pads by _pad_head. The bf16 kernels take H a multiple of 8.
+// Head dims. A head dim H <= 256 runs with the true H passed at run time.
+// Columns at or past H load as zeros (the TMA map's extent is H; the fp32
+// staging masks them), so they add nothing to any product over H, and
+// stores skip them: no padded copy is made, as the TPU code pads by
+// _pad_head. The bf16 kernels take H a multiple of 8 (the wrapper pads any
+// other H to one).
+// - H <= 128: tiles D = 64 or 128 columns wide, the smaller D >= H.
+// - 128 < H <= 256: one warpgroup cannot hold a 64 x 256 fp32 dK and dV
+//   (256 registers a thread each), so the output columns are split into
+//   two windows of 128, a grid axis: each CTA recomputes S and dP over the
+//   whole head and writes one window of dQ, or of dK and dV. The bf16
+//   kernels load 256-column tiles (192 KB of shared memory, one CTA per
+//   SM) and read the window's half of the B operand; the fp32 kernels keep
+//   the 128-column tiles and take S and dP in two chunks of 128 columns,
+//   the window's chunk last, so that it stays staged for the products
+//   that write the window. The price is S and dP taken twice.
 //
 // Layout: q, o, dO, dQ [B, Sq, N, H] and k, v, dK, dV [B, Sk, N, H], read
 // and written by element strides (the last axis contiguous), so the
@@ -231,7 +241,9 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * 64 * ld<D>() + 2 * BQ * LDT + 2 * BQ);
 }
 
-template <typename T, int D>
+// C chunks of D columns cover the head; blockIdx.z is the output window,
+// the chunk of dQ (or of dK and dV) that the CTA writes.
+template <typename T, int D, int C>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -241,6 +253,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float sm_scale, int causal) {
   static_assert(D % 64 == 0, "tiles are a multiple of 64 columns wide");
   constexpr int LD = ld<D>();
+  const int w = blockIdx.z;
 
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][LD]
@@ -258,10 +271,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = bn % n_heads;
   const int q0 = qt * BQ;
 
+  const T* qb = q + b * qs.b + n * qs.n;
+  const T* dob = dout + b * dos.b + n * dos.n;
   const T* kb = k + b * ks.b + n * ks.n;
   const T* vb = v + b * vs.b + n * vs.n;
-  stage_rows<T, D>(sQ, q + b * qs.b + n * qs.n, qs.s, q0, sq, h);
-  stage_rows<T, D>(sDO, dout + b * dos.b + n * dos.n, dos.s, q0, sq, h);
+  if constexpr (C == 1) {
+    stage_rows<T, D>(sQ, qb, qs.s, q0, sq, h);
+    stage_rows<T, D>(sDO, dob, dos.s, q0, sq, h);
+  }
 
   float row_lse[4], row_delta[4];
 #pragma unroll
@@ -283,14 +300,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j = 0; j < n_iter; ++j) {
     const int k0 = j * BK;
-    __syncthreads();  // the previous tile's sK, sV and sDS are no longer read
-    stage_rows<T, D>(sK, kb, ks.s, k0, sk, h);
-    stage_rows<T, D>(sV, vb, vs.s, k0, sk, h);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
-    dot_rows<D>(sQ + ty * 4 * LD, sK + tx * LD, s);
-    dot_rows<D>(sDO + ty * 4 * LD, sV + tx * LD, dp);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c0 = (w + 1 + i) % C * D;  // the window's chunk last
+      __syncthreads();  // the previous chunk's or tile's tiles and sDS are no longer read
+      if constexpr (C > 1) {
+        stage_rows<T, D>(sQ, qb + c0, qs.s, q0, sq, h - c0);
+        stage_rows<T, D>(sDO, dob + c0, dos.s, q0, sq, h - c0);
+      }
+      stage_rows<T, D>(sK, kb + c0, ks.s, k0, sk, h - c0);
+      stage_rows<T, D>(sV, vb + c0, vs.s, k0, sk, h - c0);
+      __syncthreads();
+      dot_rows<D>(sQ + ty * 4 * LD, sK + tx * LD, s);
+      dot_rows<D>(sDO + ty * 4 * LD, sV + tx * LD, dp);
+    }
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -312,10 +336,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate<D>(sDS + ty * 4, sK + tx * 4, acc);  // dQ += dS K
   }
 
-  store_rows<T, D>(dq + b * dqs.b + n * dqs.n, dqs.s, q0, sq, h, ty, tx, acc);
+  store_rows<T, D>(dq + b * dqs.b + n * dqs.n + w * D, dqs.s, q0, sq, h - w * D, ty, tx, acc);
 }
 
-template <typename T, int D>
+template <typename T, int D, int C>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -325,6 +349,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      Strides dks, Strides dvs, float sm_scale, int causal) {
   static_assert(D % 64 == 0, "tiles are a multiple of 64 columns wide");
   constexpr int LD = ld<D>();
+  const int w = blockIdx.z;
 
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);  // [BK][LD]
@@ -347,8 +372,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* qb = q + b * qs.b + n * qs.n;
   const T* dob = dout + b * dos.b + n * dos.n;
-  stage_rows<T, D>(sK, k + b * ks.b + n * ks.n, ks.s, k0, sk, h);
-  stage_rows<T, D>(sV, v + b * vs.b + n * vs.n, vs.s, k0, sk, h);
+  const T* kb = k + b * ks.b + n * ks.n;
+  const T* vb = v + b * vs.b + n * vs.n;
+  if constexpr (C == 1) {
+    stage_rows<T, D>(sK, kb, ks.s, k0, sk, h);
+    stage_rows<T, D>(sV, vb, vs.s, k0, sk, h);
+  }
 
   float acc_k[4][D / 16], acc_v[4][D / 16];
 #pragma unroll
@@ -362,21 +391,28 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int it = i0; it < n_q; ++it) {
     const int r0 = it * BQ;
-    __syncthreads();  // the previous tile's sQ, sDO, sP and sDS are no longer read
-    stage_rows<T, D>(sQ, qb, qs.s, r0, sq, h);
-    stage_rows<T, D>(sDO, dob, dos.s, r0, sq, h);
-    if (tid < BQ) {
-      const int row = r0 + tid;
-      const long long at = static_cast<long long>(bn) * sq + row;
-      sLSE[tid] = row < sq ? lse[at] : 0.f;
-      sDelta[tid] = row < sq ? delta[at] : 0.f;
-    }
-    __syncthreads();
-
     // transposed scores: rows are keys, columns query rows
     float st[4][4] = {}, dpt[4][4] = {};
-    dot_rows<D>(sK + ty * 4 * LD, sQ + tx * LD, st);
-    dot_rows<D>(sV + ty * 4 * LD, sDO + tx * LD, dpt);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c0 = (w + 1 + i) % C * D;  // the window's chunk last
+      __syncthreads();  // the previous chunk's or tile's tiles, sP and sDS are no longer read
+      if constexpr (C > 1) {
+        stage_rows<T, D>(sK, kb + c0, ks.s, k0, sk, h - c0);
+        stage_rows<T, D>(sV, vb + c0, vs.s, k0, sk, h - c0);
+      }
+      stage_rows<T, D>(sQ, qb + c0, qs.s, r0, sq, h - c0);
+      stage_rows<T, D>(sDO, dob + c0, dos.s, r0, sq, h - c0);
+      if (i == 0 && tid < BQ) {
+        const int row = r0 + tid;
+        const long long at = static_cast<long long>(bn) * sq + row;
+        sLSE[tid] = row < sq ? lse[at] : 0.f;
+        sDelta[tid] = row < sq ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      dot_rows<D>(sK + ty * 4 * LD, sQ + tx * LD, st);
+      dot_rows<D>(sV + ty * 4 * LD, sDO + tx * LD, dpt);
+    }
 
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -403,11 +439,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate<D>(sDS + ty * 4, sQ + tx * 4, acc_k);   // dK += dS^T Q
   }
 
-  store_rows<T, D>(dk + b * dks.b + n * dks.n, dks.s, k0, sk, h, ty, tx, acc_k);
-  store_rows<T, D>(dv + b * dvs.b + n * dvs.n, dvs.s, k0, sk, h, ty, tx, acc_v);
+  store_rows<T, D>(dk + b * dks.b + n * dks.n + w * D, dks.s, k0, sk, h - w * D, ty, tx, acc_k);
+  store_rows<T, D>(dv + b * dvs.b + n * dvs.n + w * D, dvs.s, k0, sk, h - w * D, ty, tx, acc_v);
 }
 
-template <typename T, int D>
+template <typename T, int D, int C>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int batch,
               int n_heads, int sq, int sk, int h, Strides qs, Strides ks, Strides vs,
@@ -415,11 +451,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<T, D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * n_heads);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((sq + BQ - 1) / BQ, batch * n_heads, C);
+  flash_bwd_dq_kernel<T, D, C><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -428,7 +464,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int C>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int batch, int n_heads, int sq, int sk, int h, Strides qs, Strides ks,
@@ -436,11 +472,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<T, D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + BK - 1) / BK, batch * n_heads);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((sk + BK - 1) / BK, batch * n_heads, C);
+  flash_bwd_dkv_kernel<T, D, C><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -494,18 +530,25 @@ __device__ __forceinline__ void load_q_stage(uint8_t* smem, uint8_t* stats, uint
   tma_load_1d(stats + TILE_ROWS * 4, tdelta, bar, stat0);
 }
 
+// Output window of a D-column tile: W columns, the whole tile up to 128.
+template <int D>
+__host__ __device__ constexpr int window() { return D > 128 ? 128 : D; }
+
 // dQ for one 64-row query tile of one head: S = Q K^T and dP = dO V^T
 // (SS wgmma), dS in registers, dQ += dS K (RS wgmma, K read MN-major),
-// over the KV tiles up to the diagonal.
+// over the KV tiles up to the diagonal. blockIdx.z is the output window.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dq, int n_heads, int sq, int sk, int h,
                    Strides dqs, float sm_scale, int causal) {
-  static_assert(D == 64 || D == 128, "tiles 64 or 128 columns wide");
+  static_assert(D == 64 || D == 128 || D == 256, "tiles 64, 128 or 256 columns wide");
   using L = DqLayout<D>;
+  constexpr int W = window<D>();
+  const int w = blockIdx.z;
+  const uint32_t win = w * (W / kBoxCols) * kBoxBytes;  // the window's first box
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint64_t* bar_qdo = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -544,9 +587,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
     row_delta[h] = q_pos < sq ? delta[at] : 0.f;
   }
 
-  float acc[D / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 
   const uint32_t s_q = smem_addr(smem + L::Q), s_do = smem_addr(smem + L::DO);
   mbar_wait(bar_qdo, 0);
@@ -593,7 +636,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(acc, ds, kk, mnmajor_desc(s_k, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<W>(acc, ds, kk, mnmajor_desc(s_k + win, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -604,23 +647,26 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
                             (j + 2) * TILE_ROWS);
   }
 
-  store_tile<D>(dq + b * dqs.b + n * dqs.n, dqs.s, q0, sq, h, warp, lane, acc);
+  store_tile<W>(dq + b * dqs.b + n * dqs.n + w * W, dqs.s, q0, sq, h - w * W, warp, lane, acc);
 }
 
 // dK and dV for one 64-key tile of one head, on transposed scores:
 // S^T = K Q^T and dP^T = V dO^T (SS wgmma), P^T and dS^T in registers,
 // dV += P^T dO and dK += dS^T Q (RS wgmma, dO and Q read MN-major), over
-// the query tiles from the diagonal on.
+// the query tiles from the diagonal on. blockIdx.z is the output window.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tlse,
                     const __grid_constant__ CUtensorMap tdelta, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, int n_heads, int sq, int sk, int h,
                     Strides dks, Strides dvs, float sm_scale, int causal) {
-  static_assert(D == 64 || D == 128, "tiles 64 or 128 columns wide");
+  static_assert(D == 64 || D == 128 || D == 256, "tiles 64, 128 or 256 columns wide");
   using L = DkvLayout<D>;
+  constexpr int W = window<D>();
+  const int w = blockIdx.z;
+  const uint32_t win = w * (W / kBoxCols) * kBoxBytes;  // the window's first box
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -653,9 +699,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 
   const float scale_log2 = sm_scale * LOG2E;
-  float acc_k[D / 2], acc_v[D / 2];
+  float acc_k[W / 2], acc_v[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
   const uint32_t s_k = smem_addr(smem + L::K), s_v = smem_addr(smem + L::V);
   mbar_wait(bar_kv, 0);
@@ -708,9 +754,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     fence_regs(acc_k);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(acc_v, pt, kk, mnmajor_desc(s_dot, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<W>(acc_v, pt, kk, mnmajor_desc(s_dot + win, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(acc_k, dst, kk, mnmajor_desc(s_qt, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<W>(acc_k, dst, kk, mnmajor_desc(s_qt + win, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_v);
@@ -723,8 +769,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
                       stat_base + r0 + 2 * TILE_ROWS);
   }
 
-  store_tile<D>(dk + b * dks.b + n * dks.n, dks.s, k0, sk, h, warp, lane, acc_k);
-  store_tile<D>(dv + b * dvs.b + n * dvs.n, dvs.s, k0, sk, h, warp, lane, acc_v);
+  store_tile<W>(dk + b * dks.b + n * dks.n + w * W, dks.s, k0, sk, h - w * W, warp, lane, acc_k);
+  store_tile<W>(dv + b * dvs.b + n * dvs.n + w * W, dvs.s, k0, sk, h - w * W, warp, lane, acc_v);
 }
 
 template <int D>
@@ -742,7 +788,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads);
+  const dim3 grid((sq + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads, D / window<D>());
   flash_bwd_dq_wgmma<D><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), n_heads, sq, sk, h, dqs, sm_scale, causal);
@@ -767,7 +813,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads);
+  const dim3 grid((sk + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads, D / window<D>());
   flash_bwd_dkv_wgmma<D><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, tdo, tlse, tdelta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), n_heads, sq, sk, h, dks, dvs, sm_scale, causal);
@@ -779,8 +825,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the wgmma
-// kernels). head_dim: 1 to 128 (a multiple of 8 for bfloat16), run on the
-// instance 64 or 128 columns wide. Strides in elements, (batch, sequence,
+// kernels). head_dim: 1 to 256 (a multiple of 8 for bfloat16), run on the
+// instance 64, 128 or 256 columns wide (fp32 above 128: two chunks of
+// 128). Strides in elements, (batch, sequence,
 // head) for each [B, S, N, H] tensor.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -799,11 +846,16 @@ extern "C" int flash_attention_bwd_dq(
     return launch(q, k, v, dout, lse, delta, dq, batch, n_heads, sq, sk, head_dim, qs, ks, vs,
                   dos, dqs, sm_scale, causal, st);
   };
-  if (head_dim < 1 || head_dim > 128 || (dtype == 1 && head_dim % 8 != 0))
+  if (head_dim < 1 || head_dim > 256 || (dtype == 1 && head_dim % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = head_dim > 64;
-  if (dtype == 0) return wide ? run(launch_dq<float, 128>) : run(launch_dq<float, 64>);
-  if (dtype == 1) return wide ? run(wg::launch_dq<128>) : run(wg::launch_dq<64>);
+  if (dtype == 0)
+    return head_dim > 128  ? run(launch_dq<float, 128, 2>)
+           : head_dim > 64 ? run(launch_dq<float, 128, 1>)
+                           : run(launch_dq<float, 64, 1>);
+  if (dtype == 1)
+    return head_dim > 128  ? run(wg::launch_dq<256>)
+           : head_dim > 64 ? run(wg::launch_dq<128>)
+                           : run(wg::launch_dq<64>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -826,10 +878,15 @@ extern "C" int flash_attention_bwd_dkv(
     return launch(q, k, v, dout, lse, delta, dk, dv, batch, n_heads, sq, sk, head_dim, qs, ks,
                   vs, dos, dks, dvs, sm_scale, causal, st);
   };
-  if (head_dim < 1 || head_dim > 128 || (dtype == 1 && head_dim % 8 != 0))
+  if (head_dim < 1 || head_dim > 256 || (dtype == 1 && head_dim % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = head_dim > 64;
-  if (dtype == 0) return wide ? run(launch_dkv<float, 128>) : run(launch_dkv<float, 64>);
-  if (dtype == 1) return wide ? run(wg::launch_dkv<128>) : run(wg::launch_dkv<64>);
+  if (dtype == 0)
+    return head_dim > 128  ? run(launch_dkv<float, 128, 2>)
+           : head_dim > 64 ? run(launch_dkv<float, 128, 1>)
+                           : run(launch_dkv<float, 64, 1>);
+  if (dtype == 1)
+    return head_dim > 128  ? run(wg::launch_dkv<256>)
+           : head_dim > 64 ? run(wg::launch_dkv<128>)
+                           : run(wg::launch_dkv<64>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -357,4 +357,17 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
   wgmma_m64n128k16_rs_tb(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc_b, 1);
 }
 
+// D[64 x 256]: two m64n128 products, one per half of the accumulator and
+// of the B tile (boxes 0-1 and 2-3). The halves side by side are the
+// m64n256 accumulator layout above, so store_tile<256> reads them as one.
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t (&a)[16], int kk,
+                                                 uint64_t desc_b) {
+  float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&d[0]);
+  float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&d[64]);
+  wgmma_m64n128k16_rs_tb(lo, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc_b, 1);
+  wgmma_m64n128k16_rs_tb(hi, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                         desc_b + ((2 * kBoxBytes) >> 4), 1);
+}
+
 }  // namespace hopper

@@ -17,8 +17,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``, written by hand for
 Dispatch is by where the tensors lie: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. Nothing
 falls back from the one to the other. The kernels take every head dim up
-to 128 (for bf16, a multiple of 8), as the JAX package takes every head
-dim by padding it; they mask the columns past it and make no padded copy.
+to 256, as the JAX package takes every head dim by padding it: they mask
+the columns past it and make no padded copy, except for a bf16 head dim
+that is not a multiple of 8, which TMA cannot load; its q, k, v (and O, dO
+for the backward) are copied once into a head axis zero-padded to the next
+multiple of 8, and the outputs sliced back.
 
 Layout everywhere: [B, S, N, H].
 """
@@ -39,7 +42,8 @@ launches = 0            # forward
 launches_bwd_dq = 0     # backward, dQ
 launches_bwd_dkv = 0    # backward, dK and dV
 
-MAX_KERNEL_HEAD_DIM = 128
+MAX_KERNEL_HEAD_DIM = 256
+_TMA_HEAD_MULTIPLE = 8   # a bf16 head dim the kernels load by TMA
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535   # each kernel's grid is (tiles of S, B*N)
 _NEG = -1e30          # the masked logit, as in the JAX package
@@ -224,16 +228,35 @@ def _strides(*tensors):
     return [st for t in tensors for st in t.stride()[:3]]
 
 
+def _needs_head_pad(q) -> bool:
+    return (q.dtype == torch.bfloat16 and q.dim() == 4
+            and q.shape[-1] % _TMA_HEAD_MULTIPLE != 0)
+
+
+def _pad_head(*tensors):
+    """Copies of bf16 [B, S, N, H] tensors with the head axis zero-padded
+    to the next multiple of 8, as the reference's ``_pad_head`` pads every
+    head. Zero columns add nothing to q k^T, dO v^T or any product over H."""
+    h = tensors[0].shape[-1]
+    pad = -h % _TMA_HEAD_MULTIPLE
+    return [torch.nn.functional.pad(t, (0, pad)) for t in tensors]
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          sm_scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, LSE) from the CUDA kernel, same contract as
     ``flash_attention_plain``: the ``wgmma`` kernel for bf16, which rounds
     P to bf16 for P V, the CUDA-core kernel for fp32. Raises on what the
-    kernel does not take; nothing is copied."""
+    kernel does not take; nothing is copied, except a bf16 head dim that is
+    not a multiple of 8, which is padded to one (the scale stays that of
+    the true head dim) and O sliced back."""
     global launches
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _needs_head_pad(q):
+        out, lse = flash_attention_cuda(*_pad_head(q, k, v), causal, sm_scale)
+        return out[..., :q.shape[-1]], lse
     _check_kernel_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
         _check_tma_operands(q=q, k=k, v=v)
@@ -304,9 +327,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     """(dQ, dK, dV) from the CUDA kernels, same contract as
     ``flash_attention_bwd_plain``: the ``wgmma`` kernels for bf16, the
     CUDA-core kernels for fp32. Raises on what the kernels do not take;
-    a dO whose head axis is not contiguous is copied once."""
+    a dO whose head axis is not contiguous is copied once, and a bf16 head
+    dim that is not a multiple of 8 is padded as in the forward, with the
+    gradients sliced back."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _needs_head_pad(q):
+        h = q.shape[-1]
+        grads = flash_attention_bwd_cuda(*_pad_head(q, k, v, o), lse,
+                                         *_pad_head(do), causal, sm_scale)
+        return tuple(g[..., :h] for g in grads)
     if do.dim() == 4 and do.stride(-1) != 1:
         do = do.contiguous()
     _check_kernel_inputs(q, k, v, o=o, do=do)

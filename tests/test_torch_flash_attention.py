@@ -151,3 +151,59 @@ def test_plain_matches_jax_at_other_head_dims(h):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                    atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _worst_tile_rel(got, want, rows=64):
+    """Largest relative norm of got - want over the ``rows``-row tiles of
+    each (b, n) head of two [B, S, N, H] arrays."""
+    worst = 0.0
+    for r0 in range(0, got.shape[1], rows):
+        num = np.linalg.norm((got - want)[:, r0:r0 + rows], axis=(1, 3))
+        den = np.maximum(np.linalg.norm(want[:, r0:r0 + rows], axis=(1, 3)),
+                         1e-30)
+        worst = max(worst, float((num / den).max()))
+    return worst
+
+
+@pytest.mark.parametrize("h,dtype", [(160, "float32"), (20, "bfloat16")])
+def test_plain_matches_jax_at_wide_and_odd_head_dims(h, dtype):
+    """A head dim above 128 (fp32) and a bf16 head dim that is not a
+    multiple of 8: the reference takes both through ``_pad_head``, and the
+    port's kernels through a 256-column instance or a padded copy. The
+    plain path, which pins what those kernels are held to, against
+    ``_flash_fwd`` (O, LSE) and ``jax.grad`` through the Pallas kernels in
+    interpret mode, ragged S, causal. fp32: 2e-5 on O and LSE, 2e-4 on
+    gradients; bf16: relative norm 1e-2 as a whole and 2e-2 in the worst
+    64-row tile of any head, |dLSE| 1e-4."""
+    q, k, v = _qkv(96, b=1, n=2, h=h, seed=5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    o, lse = jfa._flash_fwd(jq, jk, jv, True, 1.0 / np.sqrt(h), 64, 64, True)
+    o = np.asarray(o.astype(jnp.float32))
+    lse = np.asarray(lse)[:, :96]
+    tq, tk, tv = (t.to(tdt) for t in _torch(q, k, v))
+    po, plse = pfa.flash_attention_plain(tq, tk, tv, True)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, True, None, 64, 64, True)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    got = [g.float().numpy() for g in pfa.flash_attention_bwd_plain(
+        tq, tk, tv, po, plse, (2 * po.float()).to(tdt), True)]
+    po = po.float().numpy()
+    assert po.shape == q.shape and all(g.shape == q.shape for g in got)
+    if dtype == "float32":
+        np.testing.assert_allclose(po, o, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(plse.numpy(), lse, atol=TOL, rtol=TOL)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+    else:
+        assert np.abs(plse.numpy() - lse).max() <= 1e-4
+        for g, w in zip([po, *got], [o, *want]):
+            assert _rel(g, w) <= 1e-2 and _worst_tile_rel(g, w) <= 2e-2, (
+                _rel(g, w), _worst_tile_rel(g, w))

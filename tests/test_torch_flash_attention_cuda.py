@@ -129,9 +129,11 @@ def test_kernel_bf16_repeat_bit_identical(cuda):
 
 
 def test_kernel_rejects_what_tma_cannot_load(cuda):
-    """bf16 operands of the forward go in by TMA: a base off 16 bytes, a
-    stride that is not a multiple of 8 elements or a head dim that is not
-    one raises; nothing is copied."""
+    """bf16 operands of the forward go in by TMA: a base off 16 bytes or a
+    stride that is not a multiple of 8 elements raises; nothing is copied.
+    A head dim that is not a multiple of 8 is padded to one (the reference
+    pads every head by ``_pad_head``), and O comes back at the true H,
+    under the bf16 bounds, with the scale of the true H."""
     q, k, v = _qkv(cuda, (1, 64, 2, 64), torch.bfloat16)
     padded = torch.zeros((1, 64, 2, 72), device="cuda", dtype=torch.bfloat16)
     shifted = padded[..., 1:65]           # strides fine, base off 2 bytes
@@ -142,14 +144,24 @@ def test_kernel_rejects_what_tma_cannot_load(cuda):
     with pytest.raises(ValueError, match=r"strides \(8320, 130, 65, 1\)"):
         fa.flash_attention_cuda(q, k, odd[..., :64])
     q, k, v = _qkv(cuda, (1, 64, 2, 20), torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        fa.flash_attention_cuda(q, k, v)
+    got = fa.flash_attention_cuda(q, k, v)
+    assert got[0].shape == q.shape
+    _assert_bf16_forward_close(got, fa.flash_attention_plain(q, k, v))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """Head dims up to 256 run (H = 160 on the 256-column instance, the
+    columns past H masked), within the JAX package's fp32 bound; above 256
+    and in float16 the kernel raises."""
     q, k, v = _qkv(cuda, (1, 64, 2, 160), torch.float32)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        fa.flash_attention_cuda(q, k, v)
+    o, lse = fa.flash_attention_cuda(q, k, v)
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(cuda, (1, 64, 2, 320), dtype)
+        with pytest.raises(ValueError, match="head dims up to 256"):
+            fa.flash_attention_cuda(q, k, v)
     q, k, v = _qkv(cuda, (1, 64, 2, 64), torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention_cuda(q, k, v)
@@ -334,7 +346,7 @@ def test_train_step_goes_through_kernels(cuda, remat):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [16, 32, 96])
+@pytest.mark.parametrize("h", [16, 32, 96, 160, 256])
 def test_head_dims_forward_and_backward(cuda, h, dtype):
     """Head dims other than 64 and 128 run on the kernel instance of the
     next width up, with the columns past H masked: forward and backward
@@ -358,6 +370,37 @@ def test_head_dims_forward_and_backward(cuda, h, dtype):
             torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
     else:
         _assert_bf16_close(grads, ref)
+
+
+def test_flagship_head_dim_takes_no_padding_copy(cuda, monkeypatch):
+    """H = 128 (and every bf16 multiple of 8) goes to the kernels as it
+    is: the padded copy is never made."""
+    def no_copy(*tensors):
+        raise AssertionError("padded a head dim that needs no padding")
+
+    monkeypatch.setattr(fa, "_pad_head", no_copy)
+    q, k, v = _qkv(cuda, (1, 128, 2, 128), torch.bfloat16)
+    o, lse = fa.flash_attention_cuda(q, k, v, True)
+    fa.flash_attention_bwd_cuda(q, k, v, o, lse, torch.ones_like(o), True)
+
+
+@pytest.mark.parametrize("h", [20, 40])
+def test_bf16_head_dims_off_the_tma_multiple(cuda, h):
+    """bf16 head dims that are not multiples of 8 run on a copy padded to
+    one: forward and backward against the plain versions at the true H,
+    under the bf16 bounds, and the kernels launched once each."""
+    q, k, v = _qkv(cuda, (2, 160, 3, h), torch.bfloat16)
+    before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    got = fa.flash_attention_cuda(q, k, v, True)
+    _assert_bf16_forward_close(got, fa.flash_attention_plain(q, k, v, True))
+    o, lse = got
+    do = torch.randn(q.shape, generator=cuda, device="cuda").to(q.dtype)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    assert all(g.shape == q.shape for g in grads)
+    _assert_bf16_close(grads,
+                       fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True))
+    after = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -78,3 +78,28 @@ def test_entry_points_default_to_the_card():
             params_from_jax(tree)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_state(cfg, tx)
+
+
+def test_sources_cover_the_scheduler():
+    """The scan above reaches every module of the scheduler slice."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("ids", "config", "scheduler/resources",
+                   "scheduler/policy", "scheduler/tpu_policy",
+                   "scheduler/pg_kernel", "scheduler/workload"):
+        assert f"ray_tpu_torch/_private/{module}.py" in names
+
+
+def test_scheduler_entry_points_default_to_the_card():
+    from ray_tpu_torch._private.scheduler import pg_kernel, policy, tpu_policy
+    makers = (tpu_policy.TpuSchedulingPolicy,
+              tpu_policy.AdaptiveSchedulingPolicy, pg_kernel.PgKernelSolver,
+              policy.default_policy)
+    for make in makers:
+        assert make(device="cpu") is not None
+    if torch.cuda.is_available():
+        assert tpu_policy.TpuSchedulingPolicy().device.type == "cuda"
+        assert pg_kernel.PgKernelSolver().device.type == "cuda"
+    else:
+        for make in makers:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()

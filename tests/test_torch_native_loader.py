@@ -42,7 +42,7 @@ def workdir(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_is_listed():
-    assert {"flash_attention", "flash_attention_bwd"} <= set(
+    assert {"flash_attention", "flash_attention_bwd", "scheduler"} <= set(
         nl.kernel_names())
 
 
