@@ -523,8 +523,7 @@ def sdpa_bwd_trace_ms(qt, kt, vt, dot, iters=10):
     """SDPA's backward alone: the device time of the kernels that
     ``torch.autograd.grad`` launches through SDPA's causal backward,
     summed from a torch.profiler trace that holds only the backward
-    calls, per call. Falls to None when the profiler sees no device
-    time."""
+    calls, per call. Fails when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     sdpa = torch.nn.functional.scaled_dot_product_attention
     outs = [sdpa(qt, kt, vt, is_causal=True) for _ in range(iters + 1)]
@@ -537,7 +536,9 @@ def sdpa_bwd_trace_ms(qt, kt, vt, dot, iters=10):
     device_ms = sum(e.device_time_total for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     del outs
-    return device_ms / iters if device_ms > 0 else None
+    check(device_ms > 0, "the profiler saw no device time in SDPA's "
+          "backward")
+    return device_ms / iters
 
 
 def phase_backward_kernels():
@@ -605,21 +606,7 @@ def phase_backward_kernels():
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            sdpa(qt, kt, vt, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        out = sdpa(qt, kt, vt, is_causal=True)
-        torch.autograd.grad(out, (qt, kt, vt), dot)
-
-    sdpa_fwd_ms = time_ms(sdpa_fwd, iters=20)
-    sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters=20)
-    trace_ms = sdpa_bwd_trace_ms(qt, kt, vt, dot)
-    library_ms = (trace_ms if trace_ms is not None
-                  else sdpa_fwd_bwd_ms - sdpa_fwd_ms)
+    library_ms = sdpa_bwd_trace_ms(qt, kt, vt, dot)
     bounds = {kern: flash_bwd_bound_ms(kern, b, s, s, n, h, True, "bfloat16",
                                        q.element_size())
               for kern in ("dq", "dkv")}
@@ -632,14 +619,12 @@ def phase_backward_kernels():
           f"{bounds['dq'][1]}), dK/dV kernel {dkv_ms:.4f} ms (bound "
           f"{bounds['dkv'][0]:.4f} ms, {bounds['dkv'][1]}), D "
           f"{delta_ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
-          f"backward {library_ms:.4f} ms (by events: fwd+bwd "
-          f"{sdpa_fwd_bwd_ms:.4f} - fwd {sdpa_fwd_ms:.4f})")
+          f"backward {library_ms:.4f} ms")
     for kern, label in (("dq", "dQ"), ("dkv", "dK/dV")):
         print(f"flash bwd {label}: {tflops[kern]:.1f} TFLOP/s, "
               f"{bounds[kern][0] / times[kern]:.3f} of its bound")
     print(f"flash bwd dQ + dK/dV + D {pair_ms:.4f} ms against sdpa backward "
-          f"{library_ms:.4f} ms (its kernels alone, from the trace; fwd+bwd "
-          f"minus fwd by events: {sdpa_fwd_bwd_ms - sdpa_fwd_ms:.4f} ms): "
+          f"{library_ms:.4f} ms (its kernels alone, from the trace): "
           f"{pair_ms / library_ms:.3f}x")
     return {"dq": {"max_abs_err": abs_err["dQ"], "rel_err": rel_err["dQ"],
                    "tile_rel_err": tile_err["dQ"],
@@ -655,9 +640,7 @@ def phase_backward_kernels():
             "delta_ms": delta_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library_is": ("SDPA causal backward, its kernels alone from a "
-                           "torch.profiler trace" if trace_ms is not None
-                           else "SDPA causal fwd+bwd minus fwd by events"),
-            "library_by_events_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms}
+                           "torch.profiler trace")}
 
 
 def phase_memory():
@@ -834,6 +817,67 @@ def launch_floor_ms(iters=200):
     return float(np.median(trips)), time_ms(empty, iters)
 
 
+SCHED_PLAIN = {"schedule_classes_cuda": (tp, "schedule_classes_plain"),
+               "pack_cuda": (pk, "pack_plain"),
+               "pack_batch_cuda": (pk, "pack_batch_plain")}
+
+
+class KernelRecorder:
+    """While active, keeps a copy of the inputs and the outputs of the
+    first scheduler kernel call of each kind and shape (the main path
+    repeats its calls on the same inputs), so that the kernels can be
+    held against their plain versions on the main path's own inputs.
+    The wrappers themselves run and count as always."""
+
+    def __init__(self):
+        self.calls = []
+        self._seen = set()
+        self._saved = {}
+
+    def __enter__(self):
+        for name, (mod, _) in SCHED_PLAIN.items():
+            self._saved[name] = getattr(mod, name)
+            setattr(mod, name, self._wrap(name, self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, _) in SCHED_PLAIN.items():
+            setattr(mod, name, self._saved[name])
+
+    def _wrap(self, name, fn):
+        def recorded(*args):
+            key = (name, tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                               for a in args))
+            if key in self._seen:
+                return fn(*args)
+            self._seen.add(key)
+            inputs = [a.clone() if torch.is_tensor(a) else a for a in args]
+            out = fn(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            self.calls.append((name, inputs, [o.clone() for o in outs]))
+            return out
+        return recorded
+
+    def check_against_plain(self):
+        """Each recorded call's outputs equal its plain version's on the
+        same inputs, element for element; returns what was compared."""
+        compared = []
+        for name, inputs, outs in self.calls:
+            mod, plain_name = SCHED_PLAIN[name]
+            want = getattr(mod, plain_name)(
+                *(a.clone() if torch.is_tensor(a) else a for a in inputs))
+            want = want if isinstance(want, tuple) else (want,)
+            equal = all(torch.equal(o, w_) for o, w_ in zip(outs, want))
+            shapes = [tuple(a.shape) for a in inputs[:1] + inputs[3:4]]
+            print(f"main path {name} on its own inputs (avail, demands "
+                  f"{shapes}): kernel == plain {equal}")
+            check(equal, f"main-path {name} at {shapes} differs from its "
+                  f"plain version")
+            compared.append({"kernel": name, "shapes": shapes,
+                             "equal": equal})
+        return compared
+
+
 def sched_cluster(w, n_nodes=None):
     """A ClusterResourceManager of the benchmark's nodes (the first
     ``n_nodes``), resources named as bench.py names them."""
@@ -945,21 +989,26 @@ def phase_scheduler():
         + (pg_demands.shape[0] + 1) * 4,
         "pg_pack_batch": base_bytes + batch_demands.numel() * f32
         + valid.numel() + valid.shape[0] * (valid.shape[1] + 1) * 4}
+    # The bound: the bytes, plus the device floor of each launch the entry
+    # makes, measured as the kernel times are (back to back, CUDA events).
     launches_per_entry = {"schedule_classes": 1, "pg_pack": 1,
                           "pg_pack_batch": 2}
     rows = {}
     for name, (kern_ms, plain_ms) in times.items():
         bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
-        bound_ms = bytes_ms + launches_per_entry[name] * trip_ms
+        bound_ms = bytes_ms + launches_per_entry[name] * empty_ms
         rows[name] = {"ms": kern_ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bytes_bound_ms": bytes_ms,
-                      "launch_floor_ms": launches_per_entry[name] * trip_ms}
+                      "launch_floor_ms": launches_per_entry[name] * empty_ms}
         print(f"{name}: kernel {kern_ms * 1e3:.1f} us, plain on the card "
               f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us (bytes "
-              f"{bytes_ms * 1e3:.3f} us + {launches_per_entry[name]} x launch "
-              f"round trip {trip_ms * 1e3:.2f} us)")
-    print(f"launch floor: empty launch round trip {trip_ms * 1e3:.2f} us "
-          f"(host, median), {empty_ms * 1e3:.2f} us back to back (device)")
+              f"{bytes_ms * 1e3:.3f} us + {launches_per_entry[name]} x empty "
+              f"launch {empty_ms * 1e3:.2f} us back to back), kernel / bound "
+              f"{kern_ms / bound_ms:.1f}x")
+    print(f"launch floor: {empty_ms * 1e3:.2f} us an empty launch back to "
+          f"back (device, CUDA events; in the bounds), {trip_ms * 1e3:.2f} us "
+          f"its host round trip with a synchronize (median; not in the "
+          f"bounds)")
 
     # The main path, counts from 0: the dense policy path with the host
     # expansion, schedule_batch through the production composite, the
@@ -987,34 +1036,80 @@ def phase_scheduler():
     solver.solve(cluster_big, pg_bundles[:1], "SPREAD")   # builds the view
     torch.cuda.synchronize()
 
-    reset_scheduler_launch_counts()
-    expand_s = []
-    for _ in range(5):
+    with KernelRecorder() as recorder:
+        reset_scheduler_launch_counts()
+        expand_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ds = pol.schedule_dense(w.avail, w.total, w.alive, w.demands,
+                                    w.counts, np.full(k, -1, np.int32))
+            assigned = [np.repeat(o[t > 0], t[t > 0]) for kk in range(k)
+                        for o, t in ((ds.order[kk], ds.take_sorted[kk]),
+                                     (ds.order2[kk], ds.take2[kk]))]
+            n_assigned = sum(len(a) for a in assigned)
+            expand_s.append(time.perf_counter() - t0)
+        s1_before = tp.launches
         t0 = time.perf_counter()
-        ds = pol.schedule_dense(w.avail, w.total, w.alive, w.demands,
-                                w.counts, np.full(k, -1, np.int32))
-        assigned = [np.repeat(o[t > 0], t[t > 0]) for kk in range(k)
-                    for o, t in ((ds.order[kk], ds.take_sorted[kk]),
-                                 (ds.order2[kk], ds.take2[kk]))]
-        n_assigned = sum(len(a) for a in assigned)
-        expand_s.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    results = composite.schedule_batch(cluster_small, requests)
-    batch_s = time.perf_counter() - t0
-    solve_s, many_s = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        assign = solver.solve(cluster_big, pg_bundles, "SPREAD")
-        solve_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        many = solver.solve_many(cluster_big, groups, "SPREAD")
-        many_s.append(time.perf_counter() - t0)
-    counts_run = scheduler_launch_counts()
+        results = composite.schedule_batch(cluster_small, requests)
+        batch_s = time.perf_counter() - t0
+        batch_launches = tp.launches - s1_before
+        solve_s, many_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            assign = solver.solve(cluster_big, pg_bundles, "SPREAD")
+            solve_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            many = solver.solve_many(cluster_big, groups, "SPREAD")
+            many_s.append(time.perf_counter() - t0)
+        counts_run = scheduler_launch_counts()
     print(f"scheduler main path launches (schedule_classes, pg_pack, "
-          f"pg_pack_batch): {counts_run}")
+          f"pg_pack_batch; two launches a pack_batch_cuda call): "
+          f"{counts_run}")
     check(all(c > 0 for c in counts_run),
           f"a scheduler kernel was not launched on the main path: "
           f"{counts_run}")
+    check(batch_launches == 1, f"schedule_batch made {batch_launches} "
+          f"schedule_classes launches, not 1")
+
+    # Each kernel against its plain version on the main path's own inputs
+    # (the dense path's, schedule_batch's padded view, the solver's
+    # 16,384-row view sorted by node id), then schedule_batch node for
+    # node against the kernel policy on the CPU.
+    compared = recorder.check_against_plain()
+    check({c["kernel"] for c in compared} == set(SCHED_PLAIN),
+          f"the recorder missed a kernel: {compared}")
+    cpu_results = tp.TpuSchedulingPolicy(device="cpu").schedule_batch(
+        cluster_small, requests)
+    same_nodes = ([res.node_id for res in results]
+                  == [res.node_id for res in cpu_results])
+    print(f"schedule_batch on the card == on the CPU, node for node: "
+          f"{same_nodes}")
+    check(same_nodes, "schedule_batch on the card places otherwise than "
+          "the kernel policy on the CPU")
+
+    # Where schedule_batch's time goes: its one kernel, timed on the
+    # inputs it was given (CUDA events), against the call on the host
+    # clock.
+    batch_call = [c for c in recorder.calls
+                  if c[0] == "schedule_classes_cuda"
+                  and c[1][0].shape[0] == tp._bucket(SCHED_POLICY_NODES)]
+    check(len(batch_call) == 1, "schedule_batch's kernel call not recorded")
+    b_avail, *b_rest = batch_call[0][1]
+    b_work = b_avail.clone()
+
+    def batch_kernel():
+        b_work.copy_(b_avail)
+        tp.schedule_classes_cuda(b_work, *b_rest)
+
+    batch_kernel_ms = time_ms(batch_kernel, 10)
+    batch_classes = len({(tuple(sorted(q.demand.items())), q.preferred_node)
+                         for q in requests})
+    print(f"schedule_batch: {batch_s * 1e3:.3f} ms on the host clock; its "
+          f"schedule_classes kernel at avail {tuple(b_avail.shape)}, "
+          f"{b_rest[2].shape[0]} padded classes ({batch_classes} before "
+          f"padding): {batch_kernel_ms:.4f} ms on the card (CUDA events, "
+          f"with the copy of avail); the rest, "
+          f"{batch_s * 1e3 - batch_kernel_ms:.3f} ms, host and transfers")
 
     check(n_assigned == int(ds.admitted.sum()),
           f"expanded {n_assigned} tasks, admitted {int(ds.admitted.sum())}")
@@ -1043,7 +1138,13 @@ def phase_scheduler():
         "schedule_batch": {"nodes": SCHED_POLICY_NODES,
                            "requests": SCHED_POLICY_REQUESTS,
                            "placed": placed_batch, "s": batch_s,
+                           "kernel_ms": batch_kernel_ms,
+                           "classes": batch_classes,
+                           "kernel_shape": [list(b_avail.shape),
+                                            b_rest[2].shape[0]],
+                           "same_nodes_as_cpu": same_nodes,
                            "policy": type(adaptive).__name__},
+        "main_path_vs_plain": compared,
         "pg_solve": {"bundles": len(pg_bundles), "s": solve_s,
                      "bundles_per_s": len(pg_bundles) / min(solve_s)},
         "pg_solve_many": {"groups": len(groups),

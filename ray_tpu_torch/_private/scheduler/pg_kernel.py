@@ -43,7 +43,8 @@ _EPS = 1e-6
 _SPREAD_PENALTY = 1e3
 MODES = {"pack": 0, "spread": 1, "strict_spread": 2}
 
-# Kernel entries since the last reset, one count per wrapper.
+# Kernel launches since the last reset: one a ``pack_cuda`` call, two a
+# ``pack_batch_cuda`` call (``pg_pack_rank``, then ``pg_pack_batch``).
 launches_pack = 0
 launches_pack_batch = 0
 
@@ -229,7 +230,7 @@ def pack_batch_cuda(avail, total, alive, demands, valid, mode: str,
     if rc != 0:
         raise RuntimeError(f"pg_pack_batch kernel launch failed: CUDA "
                            f"error {rc}")
-    launches_pack_batch += 1
+    launches_pack_batch += 2
     return out
 
 

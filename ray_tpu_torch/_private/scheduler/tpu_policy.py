@@ -572,11 +572,12 @@ class TpuSchedulingPolicy(ISchedulingPolicy):
 
 
 _device_rt_s: Dict[torch.device, float] = {}
+_device_rt_errors: Dict[torch.device, BaseException] = {}
 _device_rt_lock = threading.Lock()
 _device_rt_threads: Dict[torch.device, threading.Thread] = {}
 
 
-def _measure_device_rt(device: torch.device) -> None:
+def _measure_device_rt(device: torch.device) -> float:
     """One measurement of the device round trip (a tiny op and its copy
     back to the host) on ``device``: the floor that a kernel invocation
     pays whatever its size."""
@@ -584,16 +585,38 @@ def _measure_device_rt(device: torch.device) -> None:
     (x + 1.0).cpu()                         # first use: context, allocator
     t0 = time.perf_counter()
     (x + 1.0).cpu()
-    _device_rt_s[device] = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def _probe_device_rt(device: torch.device) -> None:
+    """The probe thread's body: stores the round trip, or the error that
+    the next ``schedule_batch`` raises (the reference's ``except -> inf``
+    would route all work to the CPU scan without a word)."""
+    try:
+        _device_rt_s[device] = _measure_device_rt(device)
+    except Exception as exc:  # noqa: BLE001 - handed to the caller
+        _device_rt_errors[device] = exc
 
 
 def _ensure_rt_measurement(device: torch.device) -> None:
     with _device_rt_lock:
         if device not in _device_rt_s and device not in _device_rt_threads:
             _device_rt_threads[device] = threading.Thread(
-                target=_measure_device_rt, args=(device,), daemon=True,
+                target=_probe_device_rt, args=(device,), daemon=True,
                 name="rtpu-device-rt-probe")
             _device_rt_threads[device].start()
+
+
+def _raise_probe_error(device: torch.device) -> None:
+    """Raise what the probe on ``device`` failed with, once; the next
+    call starts a new probe."""
+    with _device_rt_lock:
+        exc = _device_rt_errors.pop(device, None)
+        if exc is not None:
+            _device_rt_threads.pop(device, None)
+    if exc is not None:
+        raise RuntimeError(f"the device round-trip probe on {device} "
+                           f"failed: {exc!r}") from exc
 
 
 class AdaptiveSchedulingPolicy(ISchedulingPolicy):
@@ -606,7 +629,8 @@ class AdaptiveSchedulingPolicy(ISchedulingPolicy):
     measures that round trip once on its device (in the background, CPU
     path until known) and routes each batch by ``batch x per-task CPU
     cost`` against it. This routing is the reference's cost model, not a
-    fallback: a kernel that fails raises.
+    fallback: a kernel that fails raises, and so does the next
+    ``schedule_batch`` after a failed probe.
     """
 
     name = "tpu_adaptive"
@@ -627,6 +651,7 @@ class AdaptiveSchedulingPolicy(ISchedulingPolicy):
     def _kernel_pays_off(self, n_tasks: int, n_nodes: int) -> bool:
         rt = _device_rt_s.get(self.device)
         if rt is None:           # not yet measured: stay on the scan
+            _ensure_rt_measurement(self.device)
             return False
         cpu_cost = n_tasks * (self._CPU_FIXED_S
                               + self._CPU_PER_NODE_S * max(n_nodes, 1))
@@ -635,6 +660,7 @@ class AdaptiveSchedulingPolicy(ISchedulingPolicy):
     def schedule_batch(self, cluster: ClusterResourceManager,
                        requests: Sequence[SchedulingRequest]
                        ) -> List[SchedulingResult]:
+        _raise_probe_error(self.device)
         if (len(requests) < self._min_batch
                 or not self._kernel_pays_off(len(requests),
                                              cluster.num_nodes())):

@@ -469,6 +469,32 @@ def test_adaptive_policy_routes_by_its_cost_model():
     assert all(r.node_id is not None for r in results)
 
 
+def test_adaptive_policy_raises_when_its_probe_fails(monkeypatch):
+    """A round-trip probe that fails does not leave every batch on the
+    CPU scan: the next schedule_batch raises its error, and the one after
+    starts a new probe."""
+    monkeypatch.setattr(tp, "_device_rt_s", {})
+    monkeypatch.setattr(tp, "_device_rt_errors", {})
+    monkeypatch.setattr(tp, "_device_rt_threads", {})
+
+    def broken(device):
+        raise RuntimeError("device lost")
+
+    monkeypatch.setattr(tp, "_measure_device_rt", broken)
+    inner = tp.AdaptiveSchedulingPolicy(device="cpu")
+    tp._device_rt_threads[inner.device].join(timeout=30)
+    cluster, _ = _port_cluster([16] * 4)
+    requests = [pol.SchedulingRequest(demand={"CPU": 1}) for _ in range(4)]
+    with pytest.raises(RuntimeError, match="device lost"):
+        inner.schedule_batch(cluster, requests)
+    monkeypatch.setattr(tp, "_measure_device_rt", lambda device: 1e-4)
+    results = inner.schedule_batch(cluster, requests)
+    assert all(r.node_id is not None for r in results)
+    inner._kernel_pays_off(1, 1)
+    tp._device_rt_threads[inner.device].join(timeout=30)
+    assert tp._device_rt_s[inner.device] == 1e-4
+
+
 def test_config_keys_and_env_overrides(monkeypatch):
     """The scheduler's keys have the reference's defaults and its
     RAY_TPU_<name> overrides."""

@@ -161,7 +161,7 @@ def test_pg_pack_batch_kernel_equals_plain(cuda, mode, n_nodes):
     before = pk.launches_pack_batch
     got = pk.pack_batch(*args, mode, wl.PG_TOPK)
     torch.cuda.synchronize()
-    assert pk.launches_pack_batch == before + 1
+    assert pk.launches_pack_batch == before + 2   # pg_pack_rank, pg_pack_batch
     assert torch.equal(got, want)
 
 
