@@ -28,10 +28,11 @@ Phases, each fatal on failure:
    library's backward, with each kernel's TFLOP/s and share of its bound.
 4. Head dims: forward and backward kernels at H = 16, 32, 96, 160 and
    256 (run on the instance of the next width up, 64, 128 or 256 columns,
-   columns past H masked), fp32 and bf16, and bf16 at H = 20 and 40 (a
-   copy padded to a multiple of 8), against the plain versions under the
-   same bounds. Then the 256-column kernels timed at the flagship's B and
-   S with H = 256 (N = 8, the same d_model).
+   columns past H masked) and at H = 320 and 512 (output windows that sum
+   q k^T over the head's pieces), fp32 and bf16, and bf16 at H = 20, 40
+   and 300 (a copy padded to a multiple of 8), against the plain versions
+   under the same bounds. Then the kernels timed at the flagship's B and
+   S with 8 heads of H = 256, 320 and 512.
 5. Memory: peak device memory of a kernel-path attention forward and
    backward grows linearly in S (no S x S tensor).
 6. Serving: the flagship transformer (671M parameters, random weights from
@@ -46,7 +47,19 @@ Phases, each fatal on failure:
    traced with torch.profiler.
 8. Training parity: one gradient of the loss at batch 1 x 2048 through the
    kernels, held against the plain attention path in bf16 and in fp32.
-9. Scheduler: the device programs of ``ray_tpu_torch._private.scheduler``
+9. Mesh: a process group over NCCL at world size 1 and the mesh of
+   ``MeshSpec.auto(1)``; the flagship at full width and depth takes 6
+   steps of ``make_train_step(cfg, tx, mesh)`` (the sharded SPMD step,
+   with its fsdp gathers, tp sums and gradient sums as NCCL collectives)
+   from the seed-0 weights on phase 7's batch, 8/8/8 launches a step, each
+   step's loss and grad norm held against phase 7's ``mesh=None`` step;
+   step time, tokens/s and peak memory beside it; one more step traced
+   with torch.profiler (NCCL kernels a kind of their own). Then
+   ``make_attention_fn(mesh, impl="flash")``, Ulysses with
+   ``inner="flash"`` (forward and backward) and ring attention at sp = 1
+   on bf16 tensors at the flagship's attention shape, against the plain
+   attention, with their launches.
+10. Scheduler: the device programs of ``ray_tpu_torch._private.scheduler``
    at the scheduling benchmark's shape (bench.py:20-47: 10,000 nodes x 4
    resources, 8 classes, 1,000,000 tasks; 512 bundles; 64 groups x 8
    bundles with k = 128). Each kernel (schedule_classes, pg_pack,
@@ -62,17 +75,19 @@ Phases, each fatal on failure:
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
-``{"training": ...}`` and ``{"kernels": [...]}`` lines, and last the
-result line ``{"ok": true, "device": {...}}``.
+``{"training": ...}``, ``{"mesh_training": ...}`` and ``{"kernels": [...]}``
+lines, and last the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import importlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -106,6 +121,15 @@ BF16_TILE_REL = 2e-2  # the same (O or a gradient), for the worst 64-row
 GRAD_GAP_FACTOR = 2.0    # model gradient and loss, kernel vs plain bf16, over
 LOSS_GAP_FLOOR = 1e-3    # plain bf16 vs fp32 (the loss bound has this floor)
 MEM_DOUBLING_MAX = 2.2   # peak memory growth per doubling of S (linear: 2)
+# Mesh step vs mesh=None step, per step, relative. Steps 1 and 2 run at
+# the initial weights (lr is 0 at step 0), where the loss is the same
+# function summed anew. The two paths round the loss's gradient apart by
+# an ulp, which a bf16 backward grows layer by layer (in fp32 their
+# gradients agree to 1e-6), and Adam turns such differences into updates
+# of order lr.
+MESH_FIRST_LOSS_REL = 1e-5
+MESH_LOSS_REL = 1e-3
+MESH_NORM_REL = 1e-2
 
 # Published H100 SXM peaks (dense): used only for the bound, never measured.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -117,16 +141,19 @@ FLAGSHIP_ATTN = (4, 2048, 16, 128)   # B, S, N, H at the flagship width
 N_REQUESTS, BATCH, SEQ = 8, 4, 2048
 TRAIN_STEPS = 6
 MEM_SEQS = (1024, 2048, 4096)        # B1 N16 H128 bf16
-OTHER_HEAD_DIMS = (16, 32, 96, 160, 256)
-ODD_BF16_HEAD_DIMS = (20, 40)         # bf16 H % 8 != 0: padded copies
-WIDE_HEAD_ATTN = (4, 2048, 8, 256)   # B, S, N, H: the flagship's d_model
+OTHER_HEAD_DIMS = (16, 32, 96, 160, 256, 320, 512)
+ODD_BF16_HEAD_DIMS = (20, 40, 300)    # bf16 H % 8 != 0: padded copies
+# B, S, N, H of the timed wide heads: the flagship's B and S, 8 heads (at
+# H = 256 the flagship's d_model)
+WIDE_HEAD_ATTNS = ((4, 2048, 8, 256), (4, 2048, 8, 320), (4, 2048, 8, 512))
 SCHED_POLICY_NODES, SCHED_POLICY_REQUESTS = 1000, 4096
 TOP_OPS = 12                         # device operations listed per trace
 # Kinds of device operation in a trace, by a piece of the kernel's name
 # in lower case; the first kind that matches takes it. Every kernel of
 # ops/flash_attention.py has "flash_" in its name; cuBLAS's have "nvjet"
-# or "gemm".
+# or "gemm"; NCCL's "nccl".
 OP_KINDS = (("attention kernels", ("flash_",)),
+            ("collectives (NCCL)", ("nccl",)),
             ("matmuls", ("nvjet", "gemm", "xmma")),
             ("casts and copies", ("copy",)),
             ("reductions", ("reduce",)),
@@ -255,19 +282,21 @@ def check_fp32_forward(got, want, what):
 def check_bf16_forward(got, want, what):
     """bf16 O against the plain forward (the wgmma kernel rounds P to bf16
     for P V, the plain version does not): max abs, relative norm and
-    worst 64-row tile of any head, in fp32; LSE by max abs. Returns the
-    four errors."""
+    worst 64-row tile of any head, in fp32; LSE by max abs, unless ``got``
+    has no LSE (None: an entry point that returns O alone). Returns the
+    errors."""
     (o, lse), (ro, rlse) = got, want
     check(o.dtype == torch.bfloat16, f"O is {o.dtype} at {what}")
     check(bool(torch.isfinite(o).all()), f"non-finite bf16 O at {what}")
     diff = o.float() - ro.float()
     err = {"max_abs_err": diff.abs().max().item(),
            "rel_err": (diff.norm() / ro.float().norm()).item(),
-           "tile_rel_err": worst_tile_rel(o, ro),
-           "lse_err": (lse - rlse).abs().max().item()}
+           "tile_rel_err": worst_tile_rel(o, ro)}
+    if lse is not None:
+        err["lse_err"] = (lse - rlse).abs().max().item()
     print(f"flash bf16 {what}: |dO| {err['max_abs_err']:.3g}, rel norm "
-          f"{err['rel_err']:.3g} (worst tile {err['tile_rel_err']:.3g}), "
-          f"|dLSE| {err['lse_err']:.3g}")
+          f"{err['rel_err']:.3g} (worst tile {err['tile_rel_err']:.3g})"
+          + (f", |dLSE| {err['lse_err']:.3g}" if lse is not None else ""))
     check(err["max_abs_err"] <= BF16_O_TOL,
           f"bf16 O off by {err['max_abs_err']} at {what}")
     check(err["rel_err"] <= BF16_O_REL,
@@ -275,8 +304,9 @@ def check_bf16_forward(got, want, what):
     check(err["tile_rel_err"] <= BF16_TILE_REL,
           f"bf16 O off by {err['tile_rel_err']:.3g} in relative norm in one "
           f"64-row tile at {what}")
-    check(err["lse_err"] <= LSE_TOL, f"bf16 LSE off by {err['lse_err']} at "
-          f"{what}")
+    if lse is not None:
+        check(err["lse_err"] <= LSE_TOL, f"bf16 LSE off by {err['lse_err']} "
+              f"at {what}")
     return err
 
 
@@ -461,7 +491,9 @@ def phase_kernels():
 def phase_head_dims():
     """Forward and backward kernels at head dims other than 64 and 128,
     against the plain versions, fp32 and bf16, causal and not; then the
-    256-column instances timed at WIDE_HEAD_ATTN, bf16, causal."""
+    kernels timed at each of WIDE_HEAD_ATTNS, bf16, causal: the 256-column
+    instances and, above 256, the output windows over the head's
+    pieces."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     cases = [(h, dtype) for h in OTHER_HEAD_DIMS
              for dtype in (torch.float32, torch.bfloat16)]
@@ -490,15 +522,22 @@ def phase_head_dims():
             else:
                 check_bf16_grads(grads, ref, what)
 
-    b, s, n, h = WIDE_HEAD_ATTN
+    return {str(shape[3]): time_wide_head(gen, shape)
+            for shape in WIDE_HEAD_ATTNS}
+
+
+def time_wide_head(gen, shape):
+    """The three kernels at ``shape`` (B, S, N, H), bf16, causal: held
+    against the plain versions, then timed beside their bounds."""
+    b, s, n, h = shape
     q, k, v, do = (torch.randn((b, s, n, h), generator=gen, device=DEVICE)
                    .to(torch.bfloat16) for _ in range(4))
     o, lse = fa.flash_attention_cuda(q, k, v, True)
     check_bf16_forward((o, lse), fa.flash_attention_plain(q, k, v, True),
-                       f"causal {WIDE_HEAD_ATTN}")
+                       f"causal {shape}")
     check_bf16_grads(fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True),
                      fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
-                     f"causal {WIDE_HEAD_ATTN}")
+                     f"causal {shape}")
     scale = 1.0 / math.sqrt(h)
     delta = fa.flash_attention_bwd_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -513,10 +552,155 @@ def phase_head_dims():
     for kern in ("dq", "dkv"):
         bounds[kern] = flash_bwd_bound_ms(kern, b, s, s, n, h, True,
                                           "bfloat16", 2)[0]
-    print(f"head dim 256 at {WIDE_HEAD_ATTN} bf16 causal: " + ", ".join(
+    print(f"head dim {h} at {shape} bf16 causal: " + ", ".join(
         f"{kern} {times[kern]:.4f} ms (bound {bounds[kern]:.4f} ms, "
         f"{bounds[kern] / times[kern]:.3f} of it)" for kern in times))
-    return {"shape": list(WIDE_HEAD_ATTN), "ms": times, "bound_ms": bounds}
+    return {"shape": list(shape), "ms": times, "bound_ms": bounds}
+
+
+def phase_mesh(training, tokens):
+    """The mesh path at world size 1: a process group over NCCL, the mesh
+    of ``MeshSpec.auto(1)``, the flagship's sharded train step from the
+    seed-0 weights on the training phase's batch, each step's loss and
+    grad norm held against the ``mesh=None`` step's (the training phase's
+    numbers, from the same weights and batch), 8/8/8 launches a step; then
+    the attention entry points of the mesh layer on CUDA bf16 tensors at
+    the flagship's attention shape, each held against the plain
+    attention."""
+    import tempfile
+    import torch.distributed as dist
+    pmesh = importlib.import_module("ray_tpu_torch.parallel.mesh")
+    xla = importlib.import_module("ray_tpu_torch.collective.xla")
+    ring = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo",
+        init_method=f"file://{rendezvous}/pg", rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(pmesh.MeshSpec.auto(1), device=DEVICE)
+        result = mesh_training(mesh, training, tokens)
+        result["attention"] = mesh_attention(mesh, xla, ring)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    return result
+
+
+def mesh_training(mesh, training, tokens):
+    cfg = flagship_config()
+    tx = trn.make_optimizer(total_steps=1000)
+    t0 = time.perf_counter()
+    state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = trn.make_train_step(cfg, tx, mesh)
+    batch = {"tokens": tokens}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step = tuple(a - b for a, b in zip(launch_counts(), counts))
+        check(per_step == (cfg.n_layers,) * 3,
+              f"mesh step {i}: (fwd, dQ, dK/dV) launches {per_step}, "
+              f"expected {cfg.n_layers} each")
+        check(metrics["step"] == i, f"mesh step {i} reported "
+              f"{metrics['step']}")
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    launches = launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                    training["losses"])]
+    norm_err = [abs(a - b) / abs(b) for a, b in zip(norms,
+                                                    training["grad_norms"])]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite mesh loss or grad norm: {losses}, {norms}")
+    check(max(loss_err[:2]) <= MESH_FIRST_LOSS_REL,
+          f"mesh losses at the initial weights off the mesh=None step's by "
+          f"{loss_err[:2]} relative")
+    check(max(loss_err) <= MESH_LOSS_REL,
+          f"mesh losses {losses} off the mesh=None step's "
+          f"{training['losses']} by up to {max(loss_err):.3g} relative")
+    check(max(norm_err) <= MESH_NORM_REL,
+          f"mesh grad norms {norms} off the mesh=None step's "
+          f"{training['grad_norms']} by up to {max(norm_err):.3g} relative")
+    profile = profile_device(lambda: step(state, batch),
+                             "one mesh training step")
+    step_s = sum(times[1:]) / len(times[1:])
+    print(f"mesh training (world size 1, NCCL): init {init_s:.2f} s; step "
+          f"times {times} s; losses {losses}; grad norms {norms}; relative "
+          f"to mesh=None: losses {max(loss_err):.3g}, grad norms "
+          f"{max(norm_err):.3g}")
+    print(f"mesh training: {step_s:.5f} s per step over steps "
+          f"2-{TRAIN_STEPS} ({BATCH * SEQ / step_s:.1f} tokens/s, peak "
+          f"{peak_bytes} bytes) beside mesh=None "
+          f"{training['mean_step_s_2_to_last']:.5f} s "
+          f"({training['tokens_per_s']:.1f} tokens/s, peak "
+          f"{training['peak_mem_bytes']} bytes); launches (fwd, dQ, dK/dV) "
+          f"{launches}")
+    del state
+    return {"mesh": "MeshSpec.auto(1) over NCCL", "steps": TRAIN_STEPS,
+            "step_time_s": times, "mean_step_s_2_to_last": step_s,
+            "tokens_per_s": BATCH * SEQ / step_s,
+            "peak_mem_bytes": peak_bytes, "losses": losses,
+            "grad_norms": norms, "loss_rel_err": loss_err,
+            "grad_norm_rel_err": norm_err, "init_s": init_s,
+            "profile": profile,
+            "mesh_none": {key: training[key] for key in (
+                "mean_step_s_2_to_last", "tokens_per_s", "peak_mem_bytes")},
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dq": launches[1],
+                         "flash_bwd_dkv": launches[2]}}
+
+
+def mesh_attention(mesh, xla, ring):
+    """``make_attention_fn(mesh, impl="flash")``, Ulysses with
+    ``inner="flash"`` (forward and backward) and ring attention at sp = 1,
+    on bf16 CUDA tensors at FLAGSHIP_ATTN, each against the plain
+    attention under the bf16 bounds, with their kernel launches."""
+    pmesh = importlib.import_module("ray_tpu_torch.parallel.mesh")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    q, k, v, do = (torch.randn(FLAGSHIP_ATTN, generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    want = fa.flash_attention_plain(q, k, v, True)
+    spec = pmesh.P(("dp", "fsdp"), "sp", "tp", None)
+    flash = ring.make_attention_fn(mesh, impl="flash")
+    ulysses = xla.shard_map_fn(mesh, (spec,) * 3, spec)(functools.partial(
+        ring.ulysses_attention_shard, axis_name="sp", inner="flash"))
+    ring_fn = xla.shard_map_fn(mesh, (spec,) * 3, spec)(functools.partial(
+        ring.ring_attention_shard, axis_name="sp"))
+    out = {}
+    for name, fn, expected in (("flash", flash, (1, 0, 0)),
+                               ("ulysses_flash", ulysses, (1, 1, 1)),
+                               ("ring_sp1", ring_fn, (0, 0, 0))):
+        leaves = [t.clone().requires_grad_(name == "ulysses_flash")
+                  for t in (q, k, v)]
+        before = launch_counts()
+        o = fn(*leaves)
+        o = o.to_local() if hasattr(o, "to_local") else o
+        grads = (torch.autograd.grad(o, leaves, do)
+                 if name == "ulysses_flash" else None)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(launch_counts(), before))
+        check(launched == expected, f"{name}: (fwd, dQ, dK/dV) launches "
+              f"{launched}, expected {expected}")
+        err = check_bf16_forward((o.detach(), None), want,
+                                 f"{name} on the mesh {FLAGSHIP_ATTN}")
+        if grads is not None:
+            rel, tile, _ = check_bf16_grads(grads, fa.flash_attention_bwd_plain(
+                q, k, v, *want, do, True), f"{name} on the mesh "
+                f"{FLAGSHIP_ATTN}")
+            err["grad_rel_err"], err["grad_tile_rel_err"] = rel, tile
+        out[name] = {**err, "launches": launched}
+    return out
 
 
 def sdpa_bwd_trace_ms(qt, kt, vt, dot, iters=10):
@@ -1294,11 +1478,15 @@ def main() -> int:
     training["memory_linear_in_s"] = memory
     train_launches = training["launches"]
     torch.cuda.empty_cache()
+    mesh = phase_mesh(training, tokens)
+    mesh_launches = mesh["launches"]
+    torch.cuda.empty_cache()
     scheduler = phase_scheduler()
 
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"training": training, "card": card}))
-    print(json.dumps({"head_dim_256": wide_head, "card": card}))
+    print(json.dumps({"mesh_training": mesh, "card": card}))
+    print(json.dumps({"wide_head_dims": wide_head, "card": card}))
     print(json.dumps({"scheduler": scheduler, "card": card}))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -1306,9 +1494,11 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention.cu",
         "replaces": f"{src}:83", "replaces_fn": f"{src}::_flash_fwd_kernel",
-        "launches": serving_launches + train_launches["flash_fwd"],
+        "launches": (serving_launches + train_launches["flash_fwd"]
+                     + mesh_launches["flash_fwd"]),
         "launches_by_path": {"serving": serving_launches,
-                             "training": train_launches["flash_fwd"]},
+                             "training": train_launches["flash_fwd"],
+                             "mesh_training": mesh_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -1325,9 +1515,12 @@ def main() -> int:
         kernels.append({
             "name": f"flash_bwd_{key}", "route": "cuda", "source": bwd_src,
             "replaces": f"{src}:{line}", "replaces_fn": f"{src}::{fn}",
-            "launches": train_launches[f"flash_bwd_{key}"],
+            "launches": (train_launches[f"flash_bwd_{key}"]
+                         + mesh_launches[f"flash_bwd_{key}"]),
             "launches_by_path": {"serving": 0, "training":
-                                 train_launches[f"flash_bwd_{key}"]},
+                                 train_launches[f"flash_bwd_{key}"],
+                                 "mesh_training":
+                                 mesh_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],

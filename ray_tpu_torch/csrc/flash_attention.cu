@@ -68,6 +68,10 @@
 // shared memory (fp32) or 160 KB (bf16: Q, two stages of K and V) and the
 // bf16 O accumulator takes 128 registers a thread, so one CTA runs on an
 // SM; the O += P V product is two m64n128 wgmmas over the two halves.
+// Heads wider than 256 take more launches' worth of work, not new tiles:
+// a grid axis of output windows (fp32: 128 columns, bf16: 256), each CTA
+// summing S over the head's pieces loaded in turn (flash_fwd_kernel's
+// CHUNKED instances, flash_fwd_wgmma_wide).
 //
 // Layout: q/o [B, Sq, N, H] and k/v [B, Sk, N, H], read and written by
 // element strides (the last axis contiguous), so the caller makes no
@@ -114,7 +118,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * D * LDT + BK * D);
 }
 
-template <int D>
+// CHUNKED (heads wider than one tile): gridDim.z chunks of D columns
+// cover the head; q k^T is summed over them, staging Q and K chunk by
+// chunk, and blockIdx.z is the output window, the chunk of O the CTA
+// writes. Every window takes the same S and LSE.
+template <int D, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -123,6 +131,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float sm_scale, int causal) {
   static_assert(D % 64 == 0 && BK <= D, "tiles are a multiple of 64 columns wide");
   constexpr int G = D / 64;  // float4 column groups per thread in the output
+  const int n_chunks = CHUNKED ? gridDim.z : 1;
+  const int w = CHUNKED ? blockIdx.z : 0;
 
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [D][LDT], q * sm_scale
@@ -143,11 +153,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + n * ks.n;
   const float* vb = v + b * vs.b + n * vs.n;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int qi = q0 + r;
-    sQ[d * LDT + r] = qi < sq && d < h ? qb[qi * qs.s + d] * sm_scale : 0.f;
-  }
+  // Q chunk at column c0 into sQ, transposed and scaled.
+  const auto stage_q = [&](int c0) {
+    for (int idx = tid; idx < BQ * D; idx += THREADS) {
+      const int r = idx / D, d = idx % D;
+      const int qi = q0 + r;
+      sQ[d * LDT + r] = qi < sq && c0 + d < h ? qb[qi * qs.s + c0 + d] * sm_scale : 0.f;
+    }
+  };
+  if (!CHUNKED) stage_q(0);
 
   float acc[4][4 * G];
   float m[4], l[4];
@@ -164,31 +178,35 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j = 0; j < n_iter; ++j) {
     const int k0 = j * BK;
-    __syncthreads();  // the previous tile's sP and sV are no longer read
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
-      const int kj = k0 + r;
-      const bool in = kj < sk && d < h;
-      sK[d * LDT + r] = in ? kb[kj * ks.s + d] : 0.f;
-      sV[r * D + d] = in ? vb[kj * vs.s + d] : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int c0 = c * D, v0 = w * D;
+      __syncthreads();  // the previous chunk's or tile's sQ, sK, sP and sV are no longer read
+      if (CHUNKED) stage_q(c0);
+      for (int idx = tid; idx < BK * D; idx += THREADS) {
+        const int r = idx / D, d = idx % D;
+        const int kj = k0 + r;
+        sK[d * LDT + r] = kj < sk && c0 + d < h ? kb[kj * ks.s + c0 + d] : 0.f;
+        if (c == n_chunks - 1)  // V's window, staged with the last chunk
+          sV[r * D + d] = kj < sk && v0 + d < h ? vb[kj * vs.s + v0 + d] : 0.f;
+      }
+      __syncthreads();
+
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(sQ + d * LDT + ty * 4);
-      const float4 bk = *reinterpret_cast<const float4*>(sK + d * LDT + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
+      for (int d = 0; d < D; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(sQ + d * LDT + ty * 4);
+        const float4 bk = *reinterpret_cast<const float4*>(sK + d * LDT + tx * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(av[i], bv[jj], s[i][jj]);
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(av[i], bv[jj], s[i][jj]);
+      }
     }
 
     float p[4][4];
@@ -246,7 +264,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = o + b * os.b + n * os.n;
+  float* ob = o + b * os.b + n * os.n + w * D;
+  const int h_out = h - w * D;  // the window's columns
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float row_l = l[i];
@@ -262,25 +281,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = g * 64 + tx * 4 + e;
-          if (col < h) orow[col] = acc[i][g * 4 + e] / l_safe;
+          if (col < h_out) orow[col] = acc[i][g * 4 + e] / l_safe;
         }
-      if (tx == 0) lse[static_cast<long long>(bn) * sq + q_pos] = m[i] + logf(l_safe);
+      if (tx == 0 && w == 0) lse[static_cast<long long>(bn) * sq + q_pos] = m[i] + logf(l_safe);
     }
   }
 }
 
-template <int D>
+template <int D, bool CHUNKED = false>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int batch, int n_heads, int sq, int sk, int h, Strides qs, Strides ks,
            Strides vs, Strides os, float sm_scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * n_heads);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((sq + BQ - 1) / BQ, batch * n_heads, CHUNKED ? (h + D - 1) / D : 1);
+  flash_fwd_kernel<D, CHUNKED><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
       n_heads, sq, sk, h, qs, ks, vs, os, sm_scale, causal);
@@ -465,13 +484,180 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   return cudaGetLastError();
 }
 
+// Heads wider than 256 columns (flash_fwd_wgmma_wide). A CTA is one
+// 64-row query tile of one head and one output window of 256 columns
+// (blockIdx.z). S = Q K^T is summed over 256-column pieces of Q and K,
+// loaded in turn by TMA into one stage (the k-steps past the head dim are
+// skipped); the online softmax and O += P V then run as in
+// flash_fwd_wgmma<256>, on the window's 256 columns of V. Every window
+// takes the same S, so LSE is written by window 0. The price of keeping
+// it simple: Q is loaded again for every KV tile, no load overlaps a
+// product, and S is taken once per window.
+struct WideFwdLayout {
+  static constexpr int TILE = TILE_ROWS * 256 * 2;
+  static constexpr int Q = 0, K = TILE, V = 2 * TILE;
+  static constexpr int BARS = 3 * TILE;  // Q and K, then V
+  static constexpr int BYTES = BARS + 2 * 8;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_wide(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int n_heads, int sq, int sk, int h, Strides os,
+                     float sm_scale, int causal) {
+  constexpr int D = 256;
+  using L = WideFwdLayout;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* bar_qk = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* bar_v = bar_qk + 1;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bn = blockIdx.y;
+  const int w = blockIdx.z;
+  const int b = bn / n_heads, n = bn % n_heads;
+  const int q0 = qt * TILE_ROWS;
+  const int n_kv = (sk + TILE_ROWS - 1) / TILE_ROWS;
+  const int n_iter = causal ? min(n_kv, qt + 1) : n_kv;
+  const int n_pieces = (h + D - 1) / D;
+
+  if (tid == 0) {
+    mbar_init(bar_qk, 1);
+    mbar_init(bar_v, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const float scale_log2 = sm_scale * LOG2E;
+  float m2[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  const uint32_t s_q = smem_addr(smem + L::Q), s_k = smem_addr(smem + L::K);
+  const uint32_t s_v = smem_addr(smem + L::V);
+  uint32_t phase_qk = 0, phase_v = 0;
+
+  for (int j = 0; j < n_iter; ++j) {
+    const int k0 = j * TILE_ROWS;
+    if (tid == 0) {  // the window of V, read after the softmax
+      mbar_arrive_expect_tx(bar_v, L::TILE);
+      tma_load_tile<D>(smem + L::V, &tv, bar_v, b, n, k0, w * D);
+    }
+
+    float s[32];
+    for (int p = 0; p < n_pieces; ++p) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(bar_qk, 2 * L::TILE);
+        tma_load_tile<D>(smem + L::Q, &tq, bar_qk, b, n, q0, p * D);
+        tma_load_tile<D>(smem + L::K, &tk, bar_qk, b, n, k0, p * D);
+      }
+      mbar_wait(bar_qk, phase_qk);
+      phase_qk ^= 1;
+      const int steps = (min(D, h - p * D) + 15) / 16;  // k-steps inside the head
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        if (kk < steps)
+          wgmma_m64n64k16_ss(s, kmajor_desc(s_q, kk), kmajor_desc(s_k, kk), p > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      __syncthreads();  // every warp has read this piece of Q and K
+    }
+
+    const bool edge = (causal && k0 + TILE_ROWS - 1 > q0) || k0 + TILE_ROWS > sk;
+    const auto keep = [&](int i) {
+      if (!edge) return true;
+      const int q_pos = q0 + acc_row(i, warp, lane), k_pos = k0 + acc_col(i, lane);
+      return k_pos < sk && (!causal || q_pos >= k_pos);
+    };
+    float tile_max[2] = {NEG, NEG};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = keep(i) ? s[i] * scale_log2 : NEG;
+      tile_max[(i / 2) % 2] = fmaxf(tile_max[(i / 2) % 2], s[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m2[r], tile_max[r]);
+      alpha[r] = exp2f(m2[r] - m_new);
+      m2[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      const float p = keep(i) ? exp2f(s[i] - m2[r]) : 0.f;
+      l[r] += p;
+      s[i] = p;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+    uint32_t pa[16];
+    to_a_fragments(s, pa);
+    fence_regs(pa);
+    fence_regs(acc);
+    mbar_wait(bar_v, phase_v);
+    phase_v ^= 1;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(acc, pa, kk, mnmajor_desc(s_v, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp has read V
+  }
+
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float row_l = l[r];
+    row_l += __shfl_xor_sync(0xffffffffu, row_l, 1);
+    row_l += __shfl_xor_sync(0xffffffffu, row_l, 2);
+    l_safe[r] = fmaxf(row_l, 1e-30f);
+    const int q_pos = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (w == 0 && lane % 4 == 0 && q_pos < sq)
+      lse[static_cast<long long>(bn) * sq + q_pos] = m2[r] * LN2 + logf(l_safe[r]);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] /= l_safe[(i / 2) % 2];
+  store_tile<D>(o + b * os.b + n * os.n + w * D, os.s, q0, sq, h - w * D, warp, lane, acc);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                int n_heads, int sq, int sk, int h, Strides qs, Strides ks, Strides vs,
+                Strides os, float sm_scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, h, qs.b, qs.s, qs.n) ||
+      !bshd_tensor_map(&tk, k, batch, sk, n_heads, h, ks.b, ks.s, ks.n) ||
+      !bshd_tensor_map(&tv, v, batch, sk, n_heads, h, vs.b, vs.s, vs.n))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = WideFwdLayout::BYTES + 1024;  // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads, (h + 255) / 256);
+  flash_fwd_wgmma_wide<<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), n_heads, sq, sk, h,
+      os, sm_scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the wgmma kernel).
-// head_dim: 1 to 256 (a multiple of 8 for bfloat16), run on the instance
-// 64, 128 or 256 columns wide. Strides in elements, (batch, sequence, head) for
+// head_dim: any H >= 1 (a multiple of 8 for bfloat16). Up to 256 it runs
+// on the instance 64, 128 or 256 columns wide; above, fp32 on 128-column
+// chunks and bf16 on flash_fwd_wgmma_wide. Strides in elements, (batch, sequence, head) for
 // each [B, S, N, H] tensor.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -488,12 +674,16 @@ extern "C" int flash_attention_fwd(
     return launch_fn(q, k, v, o, lse, batch, n_heads, sq, sk, head_dim, qs, ks, vs, os,
                      sm_scale, causal, st);
   };
-  if (head_dim < 1 || head_dim > 256 || (dtype == 1 && head_dim % 8 != 0))
+  if (head_dim < 1 || (dtype == 1 && head_dim % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return head_dim > 128 ? run(launch<256>) : head_dim > 64 ? run(launch<128>) : run(launch<64>);
+    return head_dim > 256   ? run(launch<128, true>)
+           : head_dim > 128 ? run(launch<256>)
+           : head_dim > 64  ? run(launch<128>)
+                            : run(launch<64>);
   if (dtype == 1)
-    return head_dim > 128  ? run(wg::launch<256>)
+    return head_dim > 256   ? run(wg::launch_wide)
+           : head_dim > 128 ? run(wg::launch<256>)
            : head_dim > 64 ? run(wg::launch<128>)
                            : run(wg::launch<64>);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -95,6 +95,10 @@
 //   the 128-column tiles and take S and dP in two chunks of 128 columns,
 //   the window's chunk last, so that it stays staged for the products
 //   that write the window. The price is S and dP taken twice.
+// - H > 256: the fp32 kernels take as many 128-column chunks as the head
+//   has; the bf16 kernels are the _wide kernels at the end of this file
+//   (256-column pieces of every operand loaded in turn, 128-column output
+//   windows).
 //
 // Layout: q, o, dO, dQ [B, Sq, N, H] and k, v, dK, dV [B, Sk, N, H], read
 // and written by element strides (the last axis contiguous), so the
@@ -241,9 +245,10 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * 64 * ld<D>() + 2 * BQ * LDT + 2 * BQ);
 }
 
-// C chunks of D columns cover the head; blockIdx.z is the output window,
-// the chunk of dQ (or of dK and dV) that the CTA writes.
-template <typename T, int D, int C>
+// MULTI: gridDim.z chunks of D columns cover the head, any number of
+// them; blockIdx.z is the output window, the chunk of dQ (or of dK and dV)
+// that the CTA writes. Otherwise one chunk is the whole head.
+template <typename T, int D, bool MULTI>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -253,6 +258,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float sm_scale, int causal) {
   static_assert(D % 64 == 0, "tiles are a multiple of 64 columns wide");
   constexpr int LD = ld<D>();
+  const int C = MULTI ? gridDim.z : 1;
   const int w = blockIdx.z;
 
   extern __shared__ float4 smem4[];
@@ -275,7 +281,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dob = dout + b * dos.b + n * dos.n;
   const T* kb = k + b * ks.b + n * ks.n;
   const T* vb = v + b * vs.b + n * vs.n;
-  if constexpr (C == 1) {
+  if constexpr (!MULTI) {
     stage_rows<T, D>(sQ, qb, qs.s, q0, sq, h);
     stage_rows<T, D>(sDO, dob, dos.s, q0, sq, h);
   }
@@ -301,11 +307,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_iter; ++j) {
     const int k0 = j * BK;
     float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll
     for (int i = 0; i < C; ++i) {
       const int c0 = (w + 1 + i) % C * D;  // the window's chunk last
       __syncthreads();  // the previous chunk's or tile's tiles and sDS are no longer read
-      if constexpr (C > 1) {
+      if constexpr (MULTI) {
         stage_rows<T, D>(sQ, qb + c0, qs.s, q0, sq, h - c0);
         stage_rows<T, D>(sDO, dob + c0, dos.s, q0, sq, h - c0);
       }
@@ -339,7 +344,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + b * dqs.b + n * dqs.n + w * D, dqs.s, q0, sq, h - w * D, ty, tx, acc);
 }
 
-template <typename T, int D, int C>
+template <typename T, int D, bool MULTI>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -349,6 +354,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      Strides dks, Strides dvs, float sm_scale, int causal) {
   static_assert(D % 64 == 0, "tiles are a multiple of 64 columns wide");
   constexpr int LD = ld<D>();
+  const int C = MULTI ? gridDim.z : 1;
   const int w = blockIdx.z;
 
   extern __shared__ float4 smem4[];
@@ -374,7 +380,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dob = dout + b * dos.b + n * dos.n;
   const T* kb = k + b * ks.b + n * ks.n;
   const T* vb = v + b * vs.b + n * vs.n;
-  if constexpr (C == 1) {
+  if constexpr (!MULTI) {
     stage_rows<T, D>(sK, kb, ks.s, k0, sk, h);
     stage_rows<T, D>(sV, vb, vs.s, k0, sk, h);
   }
@@ -393,11 +399,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r0 = it * BQ;
     // transposed scores: rows are keys, columns query rows
     float st[4][4] = {}, dpt[4][4] = {};
-#pragma unroll
     for (int i = 0; i < C; ++i) {
       const int c0 = (w + 1 + i) % C * D;  // the window's chunk last
       __syncthreads();  // the previous chunk's or tile's tiles, sP and sDS are no longer read
-      if constexpr (C > 1) {
+      if constexpr (MULTI) {
         stage_rows<T, D>(sK, kb + c0, ks.s, k0, sk, h - c0);
         stage_rows<T, D>(sV, vb + c0, vs.s, k0, sk, h - c0);
       }
@@ -443,7 +448,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + b * dvs.b + n * dvs.n + w * D, dvs.s, k0, sk, h - w * D, ty, tx, acc_v);
 }
 
-template <typename T, int D, int C>
+template <typename T, int D, bool MULTI>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int batch,
               int n_heads, int sq, int sk, int h, Strides qs, Strides ks, Strides vs,
@@ -451,11 +456,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<T, D, MULTI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * n_heads, C);
-  flash_bwd_dq_kernel<T, D, C><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((sq + BQ - 1) / BQ, batch * n_heads, MULTI ? (h + D - 1) / D : 1);
+  flash_bwd_dq_kernel<T, D, MULTI><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -464,7 +469,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-template <typename T, int D, int C>
+template <typename T, int D, bool MULTI>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int batch, int n_heads, int sq, int sk, int h, Strides qs, Strides ks,
@@ -472,11 +477,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<T, D, MULTI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + BK - 1) / BK, batch * n_heads, C);
-  flash_bwd_dkv_kernel<T, D, C><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((sk + BK - 1) / BK, batch * n_heads, MULTI ? (h + D - 1) / D : 1);
+  flash_bwd_dkv_kernel<T, D, MULTI><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -820,14 +825,311 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return cudaGetLastError();
 }
 
+// Heads wider than 256 columns (flash_bwd_dq_wgmma_wide,
+// flash_bwd_dkv_wgmma_wide). A CTA writes one 128-column output window
+// (blockIdx.z) of dQ, or of dK and dV. For each tile of the loop it sums
+// S and dP over 256-column pieces of the four operands (Q, dO, K, V),
+// loaded in turn by TMA into one stage, the window's piece last, so that
+// the piece stays in shared memory for the products that write the
+// window; the k-steps past the head dim are skipped. P and dS are then
+// formed as in the kernels above. The price of keeping it simple: every
+// operand is loaded again for every tile and piece, no load overlaps a
+// product, and S and dP are taken once per window.
+struct WideLayout {
+  static constexpr int TILE = TILE_ROWS * 256 * 2;
+  static constexpr int Q = 0, DO = TILE, K = 2 * TILE, V = 3 * TILE;
+  static constexpr int STATS = 4 * TILE;       // LSE[64], D[64] (dK/dV)
+  static constexpr int BARS = STATS + 512;
+  static constexpr int BYTES = BARS + 8;
+};
+
+// The four 256-column pieces at column col0: Q and dO at rows q_row, K
+// and V at rows k_row; with LSE and D of the query rows when `stats`.
+__device__ __forceinline__ void load_wide_piece(uint8_t* smem, uint64_t* bar,
+                                                const CUtensorMap* tq, const CUtensorMap* tdo,
+                                                const CUtensorMap* tk, const CUtensorMap* tv,
+                                                const CUtensorMap* tlse,
+                                                const CUtensorMap* tdelta, int b, int n,
+                                                int q_row, int k_row, int col0, int stat0) {
+  using L = WideLayout;
+  mbar_arrive_expect_tx(bar, 4 * L::TILE + (tlse ? 2 * TILE_ROWS * 4 : 0));
+  tma_load_tile<256>(smem + L::Q, tq, bar, b, n, q_row, col0);
+  tma_load_tile<256>(smem + L::DO, tdo, bar, b, n, q_row, col0);
+  tma_load_tile<256>(smem + L::K, tk, bar, b, n, k_row, col0);
+  tma_load_tile<256>(smem + L::V, tv, bar, b, n, k_row, col0);
+  if (tlse) {
+    tma_load_1d(smem + L::STATS, tlse, bar, stat0);
+    tma_load_1d(smem + L::STATS + TILE_ROWS * 4, tdelta, bar, stat0);
+  }
+}
+
+// acc (+)= A B^T over one piece: A and B 256-column tiles read K-major,
+// `steps` k-steps of 16 columns; `first` starts the sum.
+__device__ __forceinline__ void piece_product(float (&acc)[32], uint32_t a, uint32_t b,
+                                              int steps, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    if (kk < steps)
+      wgmma_m64n64k16_ss(acc, kmajor_desc(a, kk), kmajor_desc(b, kk), !first || kk > 0);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_wide(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                        int n_heads, int sq, int sk, int h, Strides dqs, float sm_scale,
+                        int causal) {
+  using L = WideLayout;
+  constexpr int W = 128;
+  const int w = blockIdx.z;
+  const int pw = w / 2;                                  // the window's piece
+  const uint32_t win = (w % 2) * (W / kBoxCols) * kBoxBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bn = blockIdx.y;
+  const int b = bn / n_heads, n = bn % n_heads;
+  const int q0 = qt * TILE_ROWS;
+  const int n_kv = (sk + TILE_ROWS - 1) / TILE_ROWS;
+  const int n_iter = causal ? min(n_kv, qt + 1) : n_kv;
+  const int n_pieces = (h + 255) / 256;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const float scale_log2 = sm_scale * LOG2E;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q_pos = q0 + acc_row(2 * r, warp, lane);
+    const long long at = static_cast<long long>(bn) * sq + q_pos;
+    row_lse[r] = q_pos < sq ? lse[at] * LOG2E : 0.f;
+    row_delta[r] = q_pos < sq ? delta[at] : 0.f;
+  }
+
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  const uint32_t s_q = smem_addr(smem + L::Q), s_do = smem_addr(smem + L::DO);
+  const uint32_t s_k = smem_addr(smem + L::K), s_v = smem_addr(smem + L::V);
+  uint32_t phase = 0;
+
+  for (int j = 0; j < n_iter; ++j) {
+    const int k0 = j * TILE_ROWS;
+    float s[32], dp[32];
+    for (int i = 0; i < n_pieces; ++i) {
+      const int p = (pw + 1 + i) % n_pieces;  // the window's piece last
+      if (i > 0) __syncthreads();  // every warp has read the previous piece
+      if (tid == 0)
+        load_wide_piece(smem, bar, &tq, &tdo, &tk, &tv, nullptr, nullptr, b, n, q0, k0,
+                        p * 256, 0);
+      mbar_wait(bar, phase);
+      phase ^= 1;
+      const int steps = (min(256, h - p * 256) + 15) / 16;
+      wgmma_fence();
+      piece_product(s, s_q, s_k, steps, i == 0);
+      piece_product(dp, s_do, s_v, steps, i == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    }
+
+    const bool edge = (causal && k0 + TILE_ROWS - 1 > q0) || k0 + TILE_ROWS > sk ||
+                      q0 + TILE_ROWS > sq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float p = exp2f(fmaf(s[i], scale_log2, -row_lse[(i / 2) % 2]));
+      if (edge) {
+        const int q_pos = q0 + acc_row(i, warp, lane), k_pos = k0 + acc_col(i, lane);
+        if (!(q_pos < sq && k_pos < sk && (!causal || q_pos >= k_pos))) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - row_delta[(i / 2) % 2]) * sm_scale;
+    }
+
+    uint32_t ds[16];
+    to_a_fragments(dp, ds);
+    fence_regs(ds);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<W>(acc, ds, kk, mnmajor_desc(s_k + win, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp has read the window's piece
+  }
+
+  store_tile<W>(dq + b * dqs.b + n * dqs.n + w * W, dqs.s, q0, sq, h - w * W, warp, lane, acc);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma_wide(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tlse,
+                         const __grid_constant__ CUtensorMap tdelta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         int n_heads, int sq, int sk, int h, Strides dks, Strides dvs,
+                         float sm_scale, int causal) {
+  using L = WideLayout;
+  constexpr int W = 128;
+  const int w = blockIdx.z;
+  const int pw = w / 2;                                  // the window's piece
+  const uint32_t win = (w % 2) * (W / kBoxCols) * kBoxBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kt = blockIdx.x;  // tile 0 has the most causal work: launched first
+  const int bn = blockIdx.y;
+  const int b = bn / n_heads, n = bn % n_heads;
+  const int k0 = kt * TILE_ROWS;
+  const int n_q = (sq + TILE_ROWS - 1) / TILE_ROWS;
+  const int i0 = causal ? min(kt, n_q) : 0;  // the first query tile that sees this key tile
+  const int n_pieces = (h + 255) / 256;
+  const int stat_base = bn * sq;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const float scale_log2 = sm_scale * LOG2E;
+  float acc_k[W / 2], acc_v[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t s_q = smem_addr(smem + L::Q), s_do = smem_addr(smem + L::DO);
+  const uint32_t s_k = smem_addr(smem + L::K), s_v = smem_addr(smem + L::V);
+  const float* st_lse = reinterpret_cast<const float*>(smem + L::STATS);
+  const float* st_delta = st_lse + TILE_ROWS;
+  uint32_t phase = 0;
+
+  for (int it = i0; it < n_q; ++it) {
+    const int r0 = it * TILE_ROWS;
+    float s[32], dp[32];  // rows: keys; columns: query rows
+    for (int i = 0; i < n_pieces; ++i) {
+      const int p = (pw + 1 + i) % n_pieces;  // the window's piece last
+      if (i > 0) __syncthreads();  // every warp has read the previous piece
+      if (tid == 0)
+        load_wide_piece(smem, bar, &tq, &tdo, &tk, &tv, i == 0 ? &tlse : nullptr, &tdelta, b,
+                        n, r0, k0, p * 256, stat_base + r0);
+      mbar_wait(bar, phase);
+      phase ^= 1;
+      const int steps = (min(256, h - p * 256) + 15) / 16;
+      wgmma_fence();
+      piece_product(s, s_k, s_q, steps, i == 0);
+      piece_product(dp, s_v, s_do, steps, i == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    }
+
+    const bool edge = (causal && r0 < k0 + TILE_ROWS - 1) || r0 + TILE_ROWS > sq ||
+                      k0 + TILE_ROWS > sk;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = acc_col(i, lane);
+      float p = exp2f(fmaf(s[i], scale_log2, -st_lse[col] * LOG2E));
+      if (edge) {
+        const int q_pos = r0 + col, k_pos = k0 + acc_row(i, warp, lane);
+        if (!(q_pos < sq && k_pos < sk && (!causal || q_pos >= k_pos))) p = 0.f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - st_delta[col]) * sm_scale;
+    }
+
+    uint32_t pt[16], dst[16];
+    to_a_fragments(s, pt);
+    to_a_fragments(dp, dst);
+    fence_regs(pt);
+    fence_regs(dst);
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<W>(acc_v, pt, kk, mnmajor_desc(s_do + win, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<W>(acc_k, dst, kk, mnmajor_desc(s_q + win, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    __syncthreads();  // every warp has read the window's piece and the stats
+  }
+
+  store_tile<W>(dk + b * dks.b + n * dks.n + w * W, dks.s, k0, sk, h - w * W, warp, lane, acc_k);
+  store_tile<W>(dv + b * dvs.b + n * dvs.n + w * W, dvs.s, k0, sk, h - w * W, warp, lane, acc_v);
+}
+
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int batch, int n_heads, int sq,
+                   int sk, int h, Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
+                   float sm_scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, h, qs.b, qs.s, qs.n) ||
+      !bshd_tensor_map(&tk, k, batch, sk, n_heads, h, ks.b, ks.s, ks.n) ||
+      !bshd_tensor_map(&tv, v, batch, sk, n_heads, h, vs.b, vs.s, vs.n) ||
+      !bshd_tensor_map(&tdo, dout, batch, sq, n_heads, h, dos.b, dos.s, dos.n))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = WideLayout::BYTES + 1024;  // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads, (h + 127) / 128);
+  flash_bwd_dq_wgmma_wide<<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), n_heads, sq, sk, h, dqs, sm_scale, causal);
+  return cudaGetLastError();
+}
+
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int batch,
+                    int n_heads, int sq, int sk, int h, Strides qs, Strides ks, Strides vs,
+                    Strides dos, Strides dks, Strides dvs, float sm_scale, int causal,
+                    cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const long long n_stats = static_cast<long long>(batch) * n_heads * sq;
+  if (!bshd_tensor_map(&tq, q, batch, sq, n_heads, h, qs.b, qs.s, qs.n) ||
+      !bshd_tensor_map(&tk, k, batch, sk, n_heads, h, ks.b, ks.s, ks.n) ||
+      !bshd_tensor_map(&tv, v, batch, sk, n_heads, h, vs.b, vs.s, vs.n) ||
+      !bshd_tensor_map(&tdo, dout, batch, sq, n_heads, h, dos.b, dos.s, dos.n) ||
+      !row_tensor_map(&tlse, static_cast<const float*>(lse), n_stats) ||
+      !row_tensor_map(&tdelta, static_cast<const float*>(delta), n_stats))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = WideLayout::BYTES + 1024;  // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sk + TILE_ROWS - 1) / TILE_ROWS, batch * n_heads, (h + 127) / 128);
+  flash_bwd_dkv_wgmma_wide<<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n_heads, sq, sk, h, dks, dvs, sm_scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the wgmma
-// kernels). head_dim: 1 to 256 (a multiple of 8 for bfloat16), run on the
-// instance 64, 128 or 256 columns wide (fp32 above 128: two chunks of
-// 128). Strides in elements, (batch, sequence,
+// kernels). head_dim: any H >= 1 (a multiple of 8 for bfloat16), run on
+// the instance 64, 128 or 256 columns wide (fp32 above 128: chunks of
+// 128; bf16 above 256: the _wide kernels). Strides in elements, (batch, sequence,
 // head) for each [B, S, N, H] tensor.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -846,14 +1148,15 @@ extern "C" int flash_attention_bwd_dq(
     return launch(q, k, v, dout, lse, delta, dq, batch, n_heads, sq, sk, head_dim, qs, ks, vs,
                   dos, dqs, sm_scale, causal, st);
   };
-  if (head_dim < 1 || head_dim > 256 || (dtype == 1 && head_dim % 8 != 0))
+  if (head_dim < 1 || (dtype == 1 && head_dim % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return head_dim > 128  ? run(launch_dq<float, 128, 2>)
-           : head_dim > 64 ? run(launch_dq<float, 128, 1>)
-                           : run(launch_dq<float, 64, 1>);
+    return head_dim > 128  ? run(launch_dq<float, 128, true>)
+           : head_dim > 64 ? run(launch_dq<float, 128, false>)
+                           : run(launch_dq<float, 64, false>);
   if (dtype == 1)
-    return head_dim > 128  ? run(wg::launch_dq<256>)
+    return head_dim > 256   ? run(wg::launch_dq_wide)
+           : head_dim > 128 ? run(wg::launch_dq<256>)
            : head_dim > 64 ? run(wg::launch_dq<128>)
                            : run(wg::launch_dq<64>);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -878,14 +1181,15 @@ extern "C" int flash_attention_bwd_dkv(
     return launch(q, k, v, dout, lse, delta, dk, dv, batch, n_heads, sq, sk, head_dim, qs, ks,
                   vs, dos, dks, dvs, sm_scale, causal, st);
   };
-  if (head_dim < 1 || head_dim > 256 || (dtype == 1 && head_dim % 8 != 0))
+  if (head_dim < 1 || (dtype == 1 && head_dim % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return head_dim > 128  ? run(launch_dkv<float, 128, 2>)
-           : head_dim > 64 ? run(launch_dkv<float, 128, 1>)
-                           : run(launch_dkv<float, 64, 1>);
+    return head_dim > 128  ? run(launch_dkv<float, 128, true>)
+           : head_dim > 64 ? run(launch_dkv<float, 128, false>)
+                           : run(launch_dkv<float, 64, false>);
   if (dtype == 1)
-    return head_dim > 128  ? run(wg::launch_dkv<256>)
+    return head_dim > 256   ? run(wg::launch_dkv_wide)
+           : head_dim > 128 ? run(wg::launch_dkv<256>)
            : head_dim > 64 ? run(wg::launch_dkv<128>)
                            : run(wg::launch_dkv<64>);
   return static_cast<int>(cudaErrorInvalidValue);

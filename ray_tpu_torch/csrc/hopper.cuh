@@ -159,13 +159,15 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
 }
 
 // The 64-row tile [64][D] at shared address `tile` (D/64 boxes), rows
-// [row0, row0 + 64) of head (b, n), onto `bar`.
+// [row0, row0 + 64) and columns [col0, col0 + D) of head (b, n), onto
+// `bar`. Boxes wholly past the head dim arrive as zeros.
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint8_t* tile, const CUtensorMap* map,
-                                              uint64_t* bar, int b, int n, int row0) {
+                                              uint64_t* bar, int b, int n, int row0,
+                                              int col0 = 0) {
 #pragma unroll
   for (int box = 0; box < D / kBoxCols; ++box)
-    tma_load_4d(tile + box * kBoxBytes, map, bar, box * kBoxCols, n, row0, b);
+    tma_load_4d(tile + box * kBoxBytes, map, bar, col0 + box * kBoxCols, n, row0, b);
 }
 
 // Two 64-row tiles [64][D] (K and V, or Q and dO) of the same rows, the

@@ -21,7 +21,9 @@ unembed                [D, V]
 =====================  ============  ===================================
 
 Both packages contract these with the same einsums, so the same numbers
-give the same logits.
+give the same logits. ``shard_params_from_jax`` gives a rank its blocks of
+the same tree over a mesh, the blocks that ``jax.device_put(x,
+NamedSharding(mesh, spec))`` puts on device r.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.parallel.mesh import local_block
 
 _BLOCK_KEYS = frozenset(
     {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wi", "wg", "wo_mlp"})
@@ -42,21 +45,42 @@ def params_from_jax(tree, device="cuda") -> Dict[str, Any]:
     """The port's parameters from the JAX package's ``init_params`` tree,
     given as numpy arrays (or anything ``np.asarray`` takes). Every array
     becomes an fp32 tensor on ``device``."""
+    return _convert(tree, device, lambda x, path: x)
+
+
+def shard_params_from_jax(tree, mesh, specs, device="cuda"
+                          ) -> Dict[str, Any]:
+    """This rank's blocks of the JAX package's parameter tree (numpy, as
+    for ``params_from_jax``) over ``mesh`` under the spec tree ``specs``
+    (``param_specs(cfg)``): fp32 tensors on ``device``, the same blocks
+    that ``jax.device_put(x, NamedSharding(mesh, spec))`` puts on the
+    device of this rank's index."""
+    def block(x, path):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        return local_block(mesh, x, spec)
+    return _convert(tree, device, block)
+
+
+def _convert(tree, device, take) -> Dict[str, Any]:
     dev = resolve_device(device)
     if set(tree) != _TOP_KEYS:
         raise ValueError(f"expected keys {sorted(_TOP_KEYS)}, got "
                          f"{sorted(tree)}")
 
-    def tensor(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+    def tensor(x, *path):
+        full = torch.from_numpy(np.asarray(x, dtype=np.float32))
+        return take(full, path).to(dev).clone()
 
     blocks = []
     for i, block in enumerate(tree["blocks"]):
         keys = set(block)
         if keys not in (_BLOCK_KEYS, _BLOCK_KEYS | {"router"}):
             raise ValueError(f"block {i}: unexpected keys {sorted(keys)}")
-        blocks.append({name: tensor(x) for name, x in block.items()})
-    return {"embed": tensor(tree["embed"]),
-            "final_norm": tensor(tree["final_norm"]),
+        blocks.append({name: tensor(x, "blocks", i, name)
+                       for name, x in block.items()})
+    return {"embed": tensor(tree["embed"], "embed"),
+            "final_norm": tensor(tree["final_norm"], "final_norm"),
             "blocks": blocks,
-            "unembed": tensor(tree["unembed"])}
+            "unembed": tensor(tree["unembed"], "unembed")}

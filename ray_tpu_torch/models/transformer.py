@@ -1,7 +1,7 @@
 """Flagship model: decoder-only transformer, in PyTorch.
 
-Counterpart of ``ray_tpu/models/transformer.py``, function for function
-(sharding specs wait for the parallel layer). Parameters are a plain
+Counterpart of ``ray_tpu/models/transformer.py``, function for function.
+Parameters are a plain
 dictionary of fp32 tensors with the JAX package's names and shapes, cast
 to ``cfg.dtype`` at each use; logits come back in fp32. The decoder block
 is the same: GQA, interleaved RoPE, RMSNorm, SwiGLU or a dense-einsum MoE.
@@ -9,6 +9,10 @@ is the same: GQA, interleaved RoPE, RMSNorm, SwiGLU or a dense-einsum MoE.
 With ``use_flash`` the attention runs through the port's flash attention
 (``ray_tpu_torch.ops.flash_attention``), forward and backward: the CUDA
 kernels for tensors on the card, their plain versions on the CPU.
+
+``param_specs`` gives the sharding layout over a mesh, the JAX package's
+tree with the port's ``P``; ``models/sharded.py`` runs the forward and the
+loss on each rank's blocks.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.parallel.mesh import P, local_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,22 +69,35 @@ def _dense_init(gen, shape, device, in_axis=0):
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, *,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", mesh=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's distributions, drawn from
-    a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    a ``torch.Generator`` seeded with ``seed`` on ``device``.
+
+    With ``mesh``, each rank keeps only its block of every leaf under
+    ``param_specs(cfg)``: every rank draws the same numbers, leaf by leaf,
+    so the full tree never exists on a rank (one full leaf at a time
+    does), and the blocks together are the parameters drawn without a
+    mesh."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     hd = cfg.head_dim
+    specs = param_specs(cfg)
+
+    def keep(x, spec):
+        return x if mesh is None else local_block(mesh, x, spec).clone()
+
     init = functools.partial(_dense_init, gen, device=dev)
     ones = functools.partial(torch.ones, cfg.d_model, dtype=torch.float32,
                              device=dev)
     params: Dict[str, Any] = {
-        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                             dtype=torch.float32, device=dev) * 0.02,
-        "final_norm": ones(),
+        "embed": keep(torch.randn((cfg.vocab_size, cfg.d_model),
+                                  generator=gen, dtype=torch.float32,
+                                  device=dev) * 0.02, specs["embed"]),
+        "final_norm": keep(ones(), specs["final_norm"]),
         "blocks": [],
     }
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
+        bs = specs["blocks"][i]
         block = {
             "attn_norm": ones(),
             "wq": init((cfg.d_model, cfg.n_heads, hd)),
@@ -88,21 +106,60 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *,
             "wo": init((cfg.n_heads, hd, cfg.d_model), in_axis=(0, 1)),
             "mlp_norm": ones(),
         }
+        block = {name: keep(x, bs[name]) for name, x in block.items()}
         if cfg.use_moe:
-            block["router"] = init((cfg.d_model, cfg.n_experts))
-            block["wi"] = init((cfg.n_experts, cfg.d_model, cfg.d_ff),
-                               in_axis=1)
-            block["wg"] = init((cfg.n_experts, cfg.d_model, cfg.d_ff),
-                               in_axis=1)
-            block["wo_mlp"] = init((cfg.n_experts, cfg.d_ff, cfg.d_model),
-                                   in_axis=1)
+            block["router"] = keep(init((cfg.d_model, cfg.n_experts)),
+                                   bs["router"])
+            for name, shape in (("wi", (cfg.d_model, cfg.d_ff)),
+                                ("wg", (cfg.d_model, cfg.d_ff)),
+                                ("wo_mlp", (cfg.d_ff, cfg.d_model))):
+                block[name] = keep(init((cfg.n_experts, *shape), in_axis=1),
+                                   bs[name])
         else:
-            block["wi"] = init((cfg.d_model, cfg.d_ff))
-            block["wg"] = init((cfg.d_model, cfg.d_ff))
-            block["wo_mlp"] = init((cfg.d_ff, cfg.d_model))
+            for name, shape in (("wi", (cfg.d_model, cfg.d_ff)),
+                                ("wg", (cfg.d_model, cfg.d_ff)),
+                                ("wo_mlp", (cfg.d_ff, cfg.d_model))):
+                block[name] = keep(init(shape), bs[name])
         params["blocks"].append(block)
-    params["unembed"] = init((cfg.d_model, cfg.vocab_size))
+    params["unembed"] = keep(init((cfg.d_model, cfg.vocab_size)),
+                             specs["unembed"])
     return params
+
+
+def param_specs(cfg: TransformerConfig) -> Dict:
+    """PartitionSpec tree matching init_params.
+
+    Layout: megatron-style tp on head/ff dims, fsdp on the d_model dim
+    (ZeRO-3); norms replicated. MoE experts shard over tp, each expert's
+    ff dim unsharded.
+    """
+    block: Dict[str, Any] = {
+        "attn_norm": P(None),
+        "wq": P("fsdp", "tp", None),
+        "wk": P("fsdp", "tp", None),
+        "wv": P("fsdp", "tp", None),
+        "wo": P("tp", None, "fsdp"),
+        "mlp_norm": P(None),
+    }
+    if cfg.use_moe:
+        block.update({
+            "router": P("fsdp", None),
+            "wi": P("tp", "fsdp", None),
+            "wg": P("tp", "fsdp", None),
+            "wo_mlp": P("tp", None, "fsdp"),
+        })
+    else:
+        block.update({
+            "wi": P("fsdp", "tp"),
+            "wg": P("fsdp", "tp"),
+            "wo_mlp": P("tp", "fsdp"),
+        })
+    return {
+        "embed": P("tp", "fsdp"),
+        "final_norm": P(None),
+        "blocks": [dict(block) for _ in range(cfg.n_layers)],
+        "unembed": P("fsdp", "tp"),
+    }
 
 
 # --------------------------------------------------------------------------

@@ -16,12 +16,13 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``, written by hand for
 
 Dispatch is by where the tensors lie: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. Nothing
-falls back from the one to the other. The kernels take every head dim up
-to 256, as the JAX package takes every head dim by padding it: they mask
-the columns past it and make no padded copy, except for a bf16 head dim
-that is not a multiple of 8, which TMA cannot load; its q, k, v (and O, dO
-for the backward) are copied once into a head axis zero-padded to the next
-multiple of 8, and the outputs sliced back.
+falls back from the one to the other. The kernels take every head dim, as
+the JAX package takes every head dim by padding it: up to 256 columns on
+one tile, wider heads in output windows that sum q k^T over the head's
+pieces. They mask the columns past the head dim and make no padded copy,
+except for a bf16 head dim that is not a multiple of 8, which TMA cannot
+load; its q, k, v (and O, dO for the backward) are copied once into a head
+axis zero-padded to the next multiple of 8, and the outputs sliced back.
 
 Layout everywhere: [B, S, N, H].
 """
@@ -42,7 +43,6 @@ launches = 0            # forward
 launches_bwd_dq = 0     # backward, dQ
 launches_bwd_dkv = 0    # backward, dK and dV
 
-MAX_KERNEL_HEAD_DIM = 256
 _TMA_HEAD_MULTIPLE = 8   # a bf16 head dim the kernels load by TMA
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535   # each kernel's grid is (tiles of S, B*N)
@@ -196,12 +196,10 @@ def _check_kernel_inputs(q, k, v, **same_as_q) -> None:
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
-    if not 1 <= h <= MAX_KERNEL_HEAD_DIM:
-        raise ValueError(f"the kernels take head dims up to "
-                         f"{MAX_KERNEL_HEAD_DIM}, got {h}")
-    if min(b, s_q, s_k, n) == 0 or b * n > _MAX_GRID_Y:
-        raise ValueError(f"the kernel needs 1 <= B*N <= {_MAX_GRID_Y} and "
-                         f"non-empty sequences, got {tuple(q.shape)}, "
+    if min(b, s_q, s_k, n, h) == 0 or b * n > _MAX_GRID_Y:
+        raise ValueError(f"the kernel needs 1 <= B*N <= {_MAX_GRID_Y}, "
+                         f"non-empty sequences and heads, got "
+                         f"{tuple(q.shape)}, "
                          f"Sk={s_k}")
 
 
@@ -233,6 +231,12 @@ def _needs_head_pad(q) -> bool:
             and q.shape[-1] % _TMA_HEAD_MULTIPLE != 0)
 
 
+def _scale(q, sm_scale: Optional[float]) -> float:
+    """``sm_scale``, or 1/sqrt(H) of q's true head dim (H >= 1: the
+    kernels' inputs are checked, or H is not a multiple of 8, first)."""
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+
+
 def _pad_head(*tensors):
     """Copies of bf16 [B, S, N, H] tensors with the head axis zero-padded
     to the next multiple of 8, as the reference's ``_pad_head`` pads every
@@ -252,12 +256,12 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     not a multiple of 8, which is padded to one (the scale stays that of
     the true head dim) and O sliced back."""
     global launches
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _needs_head_pad(q):
-        out, lse = flash_attention_cuda(*_pad_head(q, k, v), causal, sm_scale)
+        out, lse = flash_attention_cuda(*_pad_head(q, k, v), causal,
+                                        _scale(q, sm_scale))
         return out[..., :q.shape[-1]], lse
     _check_kernel_inputs(q, k, v)
+    sm_scale = _scale(q, sm_scale)
     if q.dtype == torch.bfloat16:
         _check_tma_operands(q=q, k=k, v=v)
     b, s_q, n, h = q.shape
@@ -330,16 +334,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     a dO whose head axis is not contiguous is copied once, and a bf16 head
     dim that is not a multiple of 8 is padded as in the forward, with the
     gradients sliced back."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _needs_head_pad(q):
         h = q.shape[-1]
         grads = flash_attention_bwd_cuda(*_pad_head(q, k, v, o), lse,
-                                         *_pad_head(do), causal, sm_scale)
+                                         *_pad_head(do), causal,
+                                         _scale(q, sm_scale))
         return tuple(g[..., :h] for g in grads)
     if do.dim() == 4 and do.stride(-1) != 1:
         do = do.contiguous()
     _check_kernel_inputs(q, k, v, o=o, do=do)
+    sm_scale = _scale(q, sm_scale)
     b, s_q, n, _ = q.shape
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (b * n, s_q) or not lse.is_contiguous()

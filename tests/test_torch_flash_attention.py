@@ -169,11 +169,13 @@ def _worst_tile_rel(got, want, rows=64):
     return worst
 
 
-@pytest.mark.parametrize("h,dtype", [(160, "float32"), (20, "bfloat16")])
+@pytest.mark.parametrize("h,dtype", [(160, "float32"), (20, "bfloat16"),
+                                     (320, "float32")])
 def test_plain_matches_jax_at_wide_and_odd_head_dims(h, dtype):
-    """A head dim above 128 (fp32) and a bf16 head dim that is not a
-    multiple of 8: the reference takes both through ``_pad_head``, and the
-    port's kernels through a 256-column instance or a padded copy. The
+    """Head dims above 128 and 256 (fp32) and a bf16 head dim that is not a
+    multiple of 8: the reference takes all through ``_pad_head``, and the
+    port's kernels through a 256-column instance, output windows over the
+    head's pieces, or a padded copy. The
     plain path, which pins what those kernels are held to, against
     ``_flash_fwd`` (O, LSE) and ``jax.grad`` through the Pallas kernels in
     interpret mode, ragged S, causal. fp32: 2e-5 on O and LSE, 2e-4 on

@@ -150,21 +150,45 @@ def test_kernel_rejects_what_tma_cannot_load(cuda):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    """Head dims up to 256 run (H = 160 on the 256-column instance, the
-    columns past H masked), within the JAX package's fp32 bound; above 256
-    and in float16 the kernel raises."""
+    """Every head dim runs: H = 160 on the 256-column instance (the columns
+    past H masked), H = 320 and 512 in output windows over the head's
+    pieces, forward and backward, under each dtype's bounds; float16 and
+    H = 0 raise."""
     q, k, v = _qkv(cuda, (1, 64, 2, 160), torch.float32)
     o, lse = fa.flash_attention_cuda(q, k, v)
     ro, rlse = fa.flash_attention_plain(q, k, v)
     torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=0)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _qkv(cuda, (1, 64, 2, 320), dtype)
-        with pytest.raises(ValueError, match="head dims up to 256"):
-            fa.flash_attention_cuda(q, k, v)
+    for h in (320, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(cuda, (1, 160, 2, h), dtype)
+            got = fa.flash_attention_cuda(q, k, v)
+            want = fa.flash_attention_plain(q, k, v)
+            assert got[0].shape == q.shape
+            o, lse = want
+            do = torch.randn(q.shape, generator=cuda, device="cuda").to(dtype)
+            grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got[0], want[0], atol=2e-5,
+                                           rtol=2e-5)
+                torch.testing.assert_close(got[1], want[1], atol=LSE_TOL,
+                                           rtol=0)
+                for g, w in zip(grads, ref):
+                    torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
+            else:
+                _assert_bf16_forward_close(got, want)
+                _assert_bf16_close(grads, ref)
     q, k, v = _qkv(cuda, (1, 64, 2, 64), torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention_cuda(q, k, v)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(cuda, (1, 64, 2, 0), dtype)
+        lse = torch.zeros((2, 64), device="cuda")
+        with pytest.raises(ValueError, match="non-empty sequences and heads"):
+            fa.flash_attention_cuda(q, k, v)
+        with pytest.raises(ValueError, match="non-empty sequences and heads"):
+            fa.flash_attention_bwd_cuda(q, k, v, q, lse, q)
 
 
 def test_forward_goes_through_kernel(cuda):
@@ -346,7 +370,7 @@ def test_train_step_goes_through_kernels(cuda, remat):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [16, 32, 96, 160, 256])
+@pytest.mark.parametrize("h", [16, 32, 96, 160, 256, 320, 512])
 def test_head_dims_forward_and_backward(cuda, h, dtype):
     """Head dims other than 64 and 128 run on the kernel instance of the
     next width up, with the columns past H masked: forward and backward
@@ -384,7 +408,7 @@ def test_flagship_head_dim_takes_no_padding_copy(cuda, monkeypatch):
     fa.flash_attention_bwd_cuda(q, k, v, o, lse, torch.ones_like(o), True)
 
 
-@pytest.mark.parametrize("h", [20, 40])
+@pytest.mark.parametrize("h", [20, 40, 300])
 def test_bf16_head_dims_off_the_tma_multiple(cuda, h):
     """bf16 head dims that are not multiples of 8 run on a copy padded to
     one: forward and backward against the plain versions at the true H,
