@@ -59,7 +59,29 @@ Phases, each fatal on failure:
    ``inner="flash"`` (forward and backward) and ring attention at sp = 1
    on bf16 tensors at the flagship's attention shape, against the plain
    attention, with their launches.
-10. Scheduler: the device programs of ``ray_tpu_torch._private.scheduler``
+10. Pipeline: on the same world-size-1 mesh (S = 1 stage, T = M = 4
+   steps, the exchange a copy), ``forward_pipelined`` of the flagship at
+   full width and depth with ``attn_fn=flash_attention`` on phase 7's
+   batch: 32 forward launches a call, its logits held against ``forward``
+   on the same weights under the serving phase's bound; then one gradient
+   of the next-token loss through it, 32 launches of each kernel, held
+   against the ``mesh=None`` gradient, whole and leaf by leaf, under
+   bounds from this comparison's own readings, its loss within
+   MESH_FIRST_LOSS_REL. The first forward, dQ and dK/dV calls of that
+   gradient, at the microbatch's shape, are kept and held against the
+   plain attention on their own inputs under the kernel phases' bf16
+   bounds. Forward and gradient times and peak memory; one more gradient
+   traced with torch.profiler.
+11. ViT: ViT-B/16 at its published widths (224 x 224, patch 16, d_model
+   768, 12 layers, 12 heads, d_ff 3072, 1000 classes), bf16, seed-0
+   weights, 64 random images: ``vit_loss_fn``'s gradients held against
+   the same in fp32, whole under phase 8's bound and leaf by leaf, its
+   loss by phase 8's rule on its own reading, and ``vit_loss_fn_shard``
+   on the world-size-1 mesh against ``vit_loss_fn``, loss and every leaf
+   within MESH_FIRST_LOSS_REL. Attention is dense, as in the reference:
+   no kernel launch. Step time (forward and backward) and peak memory;
+   one more step traced with torch.profiler.
+12. Scheduler: the device programs of ``ray_tpu_torch._private.scheduler``
    at the scheduling benchmark's shape (bench.py:20-47: 10,000 nodes x 4
    resources, 8 classes, 1,000,000 tasks; 512 bundles; 64 groups x 8
    bundles with k = 128). Each kernel (schedule_classes, pg_pack,
@@ -75,8 +97,9 @@ Phases, each fatal on failure:
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
-``{"training": ...}``, ``{"mesh_training": ...}`` and ``{"kernels": [...]}``
-lines, and last the result line ``{"ok": true, "device": {...}}``.
+``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
+``{"vit": ...}`` and ``{"kernels": [...]}`` lines, and last the result line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,6 +124,7 @@ native_loader = importlib.import_module("ray_tpu_torch._private.native_loader")
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 tfm = importlib.import_module("ray_tpu_torch.models.transformer")
 trn = importlib.import_module("ray_tpu_torch.models.training")
+vit = importlib.import_module("ray_tpu_torch.models.vit")
 tp = importlib.import_module("ray_tpu_torch._private.scheduler.tpu_policy")
 pk = importlib.import_module("ray_tpu_torch._private.scheduler.pg_kernel")
 spol = importlib.import_module("ray_tpu_torch._private.scheduler.policy")
@@ -128,6 +152,28 @@ MEM_DOUBLING_MAX = 2.2   # peak memory growth per doubling of S (linear: 2)
 # gradients agree to 1e-6), and Adam turns such differences into updates
 # of order lr.
 MESH_FIRST_LOSS_REL = 1e-5
+# Leaf by leaf, |g - g_ref| / |g_ref| of each parameter's gradient, its
+# largest over the leaves. Two same-precision paths are held to bounds from
+# their own readings (chip_smoke.py on an H100 80GB HBM3, 700 W), by phase
+# 8's rule: GRAD_GAP_FACTOR times the reading.
+# - The pipeline (S = 1, M = 4) against mesh=None, both bf16 through the
+#   kernels: only the matmuls' batch (1 x 2048 rows against 4 x 2048)
+#   differs. Readings: the whole tree PIPE_GRAD_READING, the worst leaf
+#   PIPE_LEAF_READING. Its loss at the same weights as the mesh step's,
+#   within MESH_FIRST_LOSS_REL.
+PIPE_GRAD_READING = 2.071e-3
+PIPE_LEAF_READING = 2.433e-3    # blocks/4/attn_norm; embed, unembed 0
+# - vit_loss_fn_shard at world size 1 against vit_loss_fn: the same
+#   operations (readings 0 in the loss and in every leaf); loss and every
+#   leaf within MESH_FIRST_LOSS_REL, as the mesh step's first losses.
+# ViT-B/16 bf16 against fp32: the whole gradient under phase 8's bound
+# (GRAD_GAP_FACTOR times the flagship's measured bf16-vs-fp32 gap); every
+# leaf within GRAD_GAP_FACTOR times the worst leaf's reading; the loss (a
+# mean over 64 images, not 8,188 tokens) within phase 8's loss rule on its
+# own reading: the larger of GRAD_GAP_FACTOR times VIT_LOSS_READING and
+# LOSS_GAP_FLOOR.
+VIT_LEAF_READING = 6.006e-2     # blocks/11/wq
+VIT_LOSS_READING = 1.4205e-3
 MESH_LOSS_REL = 1e-3
 MESH_NORM_REL = 1e-2
 
@@ -147,6 +193,10 @@ ODD_BF16_HEAD_DIMS = (20, 40, 300)    # bf16 H % 8 != 0: padded copies
 # H = 256 the flagship's d_model)
 WIDE_HEAD_ATTNS = ((4, 2048, 8, 256), (4, 2048, 8, 320), (4, 2048, 8, 512))
 SCHED_POLICY_NODES, SCHED_POLICY_REQUESTS = 1000, 4096
+PIPE_MICROBATCHES = 4                # M; at world size 1, S = 1 and T = M
+PIPE_TIMED = 3                       # timed calls after the checked one
+VIT_IMAGES = 64
+VIT_TIMED = 5
 TOP_OPS = 12                         # device operations listed per trace
 # Kinds of device operation in a trace, by a piece of the kernel's name
 # in lower case; the first kind that matches takes it. Every kernel of
@@ -167,6 +217,19 @@ def flagship_config():
         vocab_size=32_768, d_model=2048, n_layers=8, n_heads=16,
         n_kv_heads=16, d_ff=8192, max_seq_len=SEQ, remat=False,
         use_flash=True, dtype=torch.bfloat16)
+
+
+def vit_b16_config(dtype=torch.bfloat16):
+    """ViT-B/16 at its published widths (Dosovitskiy et al., "An Image is
+    Worth 16x16 Words", ICLR 2021, Table 1): 224 x 224 images in patches of
+    16 (196 patches), d_model 768, 12 layers, 12 heads, MLP 3072, 1000
+    classes. The block is the repo's (SwiGLU MLP, 1D RoPE over the patch
+    index), as ray_tpu/models/vit.py defines it; remat off, as the
+    flagship's phases run."""
+    return vit.ViTConfig(image_size=224, patch_size=16, channels=3,
+                         num_classes=1000, d_model=768, n_layers=12,
+                         n_heads=12, n_kv_heads=12, d_ff=3072, dtype=dtype,
+                         remat=False)
 
 
 def launch_counts():
@@ -559,14 +622,15 @@ def time_wide_head(gen, shape):
 
 
 def phase_mesh(training, tokens):
-    """The mesh path at world size 1: a process group over NCCL, the mesh
+    """The mesh paths at world size 1: a process group over NCCL, the mesh
     of ``MeshSpec.auto(1)``, the flagship's sharded train step from the
     seed-0 weights on the training phase's batch, each step's loss and
     grad norm held against the ``mesh=None`` step's (the training phase's
     numbers, from the same weights and batch), 8/8/8 launches a step; then
     the attention entry points of the mesh layer on CUDA bf16 tensors at
     the flagship's attention shape, each held against the plain
-    attention."""
+    attention; then the pipeline (``mesh_pipeline``) and ViT-B/16
+    (``mesh_vit``). Returns the three results."""
     import tempfile
     import torch.distributed as dist
     pmesh = importlib.import_module("ray_tpu_torch.parallel.mesh")
@@ -581,10 +645,14 @@ def phase_mesh(training, tokens):
         mesh = pmesh.make_mesh(pmesh.MeshSpec.auto(1), device=DEVICE)
         result = mesh_training(mesh, training, tokens)
         result["attention"] = mesh_attention(mesh, xla, ring)
+        torch.cuda.empty_cache()
+        pipeline = mesh_pipeline(mesh, tokens)
+        torch.cuda.empty_cache()
+        vit_result = mesh_vit(mesh, training["parity"])
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rendezvous, ignore_errors=True)
-    return result
+    return result, pipeline, vit_result
 
 
 def mesh_training(mesh, training, tokens):
@@ -701,6 +769,349 @@ def mesh_attention(mesh, xla, ring):
             err["grad_rel_err"], err["grad_tile_rel_err"] = rel, tile
         out[name] = {**err, "launches": launched}
     return out
+
+
+def next_token_loss(logits, tokens):
+    """``transformer.loss_fn``'s loss on given logits: the mean negative
+    log-likelihood of each next token."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    return -torch.gather(logp, -1, tokens[:, 1:].long()[..., None]).mean()
+
+
+def grad_dist(a, b):
+    """The norm of the difference of two gradient lists, in fp64."""
+    return math.sqrt(sum((x - y).double().square().sum().item()
+                         for x, y in zip(a, b)))
+
+
+def grad_norm(a):
+    return math.sqrt(sum(x.double().square().sum().item() for x in a))
+
+
+def mean_s(fn, n):
+    """Mean host-clock time of ``n`` calls of ``fn``, each ended by a
+    synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sum(times) / n, times
+
+
+def leaf_names(tree, prefix=""):
+    """Names of a parameter tree's leaves ("blocks/3/wq"), in the order of
+    ``training.param_leaves``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [prefix]
+    return [name for key, value in items for name in leaf_names(
+        value, f"{prefix}/{key}" if prefix else str(key))]
+
+
+def leaf_rel_errs(got, want, names):
+    """Each leaf's |got - want| / |want| in fp64, by name."""
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        w = w.double()
+        errs[name] = ((g.double() - w).norm()
+                      / w.norm().clamp_min(1e-300)).item()
+    return errs
+
+
+def worst_leaf(errs):
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+FLASH_PLAIN = {"flash_attention_cuda": (fa, "flash_attention_plain"),
+               "flash_attention_bwd_cuda": (fa, "flash_attention_bwd_plain")}
+
+
+def check_flash_calls(recorder, what):
+    """The flash forward and backward calls that ``recorder`` kept on a
+    main path (the forward's O and LSE; the backward's dQ from the dQ
+    kernel, dK and dV from the dK/dV kernel), each held against its plain
+    version on the same inputs under the kernel phases' bf16 bounds.
+    Returns the errors of each call."""
+    kept = [name for name, _, _ in recorder.calls]
+    check(sorted(kept) == sorted(FLASH_PLAIN),
+          f"{what}: kept flash calls {kept}, expected one of each of "
+          f"{sorted(FLASH_PLAIN)}")
+    out = []
+    for name, inputs, outs in recorder.calls:
+        mod, plain = FLASH_PLAIN[name]
+        want = getattr(mod, plain)(*inputs)
+        where = f"{what} {tuple(inputs[0].shape)}"
+        if name == "flash_attention_cuda":
+            err = check_bf16_forward(tuple(outs), want, where)
+        else:
+            rel, tile, abs_err = check_bf16_grads(outs, want, where)
+            err = {"rel_err": rel, "tile_rel_err": tile,
+                   "max_abs_err": abs_err}
+        del want
+        out.append({"wrapper": name, "shape": list(inputs[0].shape), **err})
+    return out
+
+
+def mesh_pipeline(mesh, tokens):
+    """``forward_pipelined`` of the flagship on the world-size-1 mesh (one
+    stage: T = M steps, each exchange a copy on the rank) through the flash
+    kernels, with the launch counts from 0 for each call: the logits held
+    against ``forward`` on the same weights (serving's bound: within
+    LOGITS_GAP_FACTOR times the plain bf16-vs-fp32 gap of the same batch),
+    one gradient of the next-token loss held against the ``mesh=None``
+    gradient (whole and leaf by leaf, GRAD_GAP_FACTOR times this
+    comparison's readings; the loss within MESH_FIRST_LOSS_REL). The first
+    forward, dQ and dK/dV calls of that gradient (at the microbatch's
+    shape) are kept and held against the plain attention on their own
+    inputs under the kernel phases' bf16 bounds."""
+    pipe = importlib.import_module("ray_tpu_torch.parallel.pipeline")
+    pmesh = importlib.import_module("ray_tpu_torch.parallel.mesh")
+    cfg = flagship_config()
+    stages = pmesh.axis_size(mesh, "pp")
+    m = PIPE_MICROBATCHES
+    expected = cfg.n_layers * (m + stages - 1)
+    params = tfm.init_params(cfg, seed=SEED, device=DEVICE)
+
+    def pipelined():
+        return pipe.forward_pipelined(params, tokens, cfg, mesh, m,
+                                      attn_fn=fa.flash_attention)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = pipelined()
+        torch.cuda.synchronize()
+        first_fwd_s = time.perf_counter() - t0
+        fwd_launches = launch_counts()
+        fwd_peak = torch.cuda.max_memory_allocated()
+        check(fwd_launches == (expected, 0, 0),
+              f"forward_pipelined: (fwd, dQ, dK/dV) launches {fwd_launches},"
+              f" expected ({expected}, 0, 0)")
+        fwd_s, _ = mean_s(pipelined, PIPE_TIMED)
+        want = tfm.forward(params, tokens, cfg)
+        none_fwd_s, _ = mean_s(lambda: tfm.forward(params, tokens, cfg),
+                               PIPE_TIMED)
+        check(tuple(logits.shape) == (BATCH, SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"pipelined logits {tuple(logits.shape)} or non-finite")
+        err = (logits - want).abs().max().item()
+        del want
+        plain_bf16 = tfm.forward(params, tokens,
+                                 dataclasses.replace(cfg, use_flash=False))
+        gap = (plain_bf16 - tfm.forward(params, tokens, dataclasses.replace(
+            cfg, use_flash=False, dtype=torch.float32))).abs().max().item()
+        del plain_bf16, logits
+    print(f"pipeline forward (S={stages}, M={m}): |pipelined - forward| "
+          f"{err:.4g}, |plain bf16 - plain fp32| {gap:.4g}; launches "
+          f"{fwd_launches}")
+    check(gap > 0 and err <= LOGITS_GAP_FACTOR * gap,
+          f"pipelined logits off forward's by {err}, over "
+          f"{LOGITS_GAP_FACTOR} x the bf16/fp32 gap {gap}")
+
+    leaves = trn.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def gradient(fwd):
+        loss = next_token_loss(fwd(), tokens)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelRecorder(FLASH_PLAIN) as recorder:
+        loss_pp, g_pp = gradient(pipelined)
+        torch.cuda.synchronize()
+    first_grad_s = time.perf_counter() - t0
+    grad_launches = launch_counts()
+    grad_peak = torch.cuda.max_memory_allocated()
+    check(grad_launches == (expected,) * 3,
+          f"pipelined gradient: (fwd, dQ, dK/dV) launches {grad_launches}, "
+          f"expected {expected} each")
+    grad_s, _ = mean_s(lambda: gradient(pipelined), PIPE_TIMED)
+    profile = profile_device(lambda: gradient(pipelined),
+                             "one pipelined gradient")
+    loss_none, g_none = gradient(lambda: tfm.forward(params, tokens, cfg))
+    none_grad_s, _ = mean_s(
+        lambda: gradient(lambda: tfm.forward(params, tokens, cfg)), PIPE_TIMED)
+    grad_err = grad_dist(g_pp, g_none) / grad_norm(g_none)
+    leaf_errs = leaf_rel_errs(g_pp, g_none, leaf_names(params))
+    worst_name, worst = worst_leaf(leaf_errs)
+    loss_err = abs(loss_pp - loss_none) / abs(loss_none)
+    grad_bound = GRAD_GAP_FACTOR * PIPE_GRAD_READING
+    leaf_bound = GRAD_GAP_FACTOR * PIPE_LEAF_READING
+    del g_pp, g_none
+    print(f"pipeline gradient: loss {loss_pp:.6f} vs mesh=None "
+          f"{loss_none:.6f} (rel {loss_err:.4g}, bound "
+          f"{MESH_FIRST_LOSS_REL:.4g}); |g_pp - g_none| / |g_none| "
+          f"{grad_err:.4g} (bound {grad_bound:.4g}); worst leaf {worst_name}"
+          f" {worst:.4g} (bound {leaf_bound:.4g}), embed "
+          f"{leaf_errs['embed']:.4g}, unembed {leaf_errs['unembed']:.4g}, "
+          f"final_norm {leaf_errs['final_norm']:.4g}; launches "
+          f"{grad_launches}")
+    check(all(math.isfinite(x) for x in (loss_pp, grad_err, worst)),
+          "non-finite pipelined loss or gradient")
+    kernel_calls = check_flash_calls(recorder, "pipeline main path")
+    del recorder
+    check(grad_err <= grad_bound, f"pipelined gradient off by {grad_err:.4g}"
+          f", over {grad_bound:.4g}")
+    check(worst <= leaf_bound, f"pipelined gradient of {worst_name} off by "
+          f"{worst:.4g}, over {leaf_bound:.4g}")
+    check(loss_err <= MESH_FIRST_LOSS_REL, f"pipelined loss off by "
+          f"{loss_err:.4g} relative, over {MESH_FIRST_LOSS_REL}")
+    print(f"pipeline timing (world size 1, S={stages}, M={m}, "
+          f"{BATCH} x {SEQ}): forward {fwd_s:.5f} s (forward without the "
+          f"pipeline {none_fwd_s:.5f} s), forward + backward {grad_s:.5f} s "
+          f"(without {none_grad_s:.5f} s); peak {fwd_peak} bytes forward, "
+          f"{grad_peak} bytes with the gradient")
+    for p in leaves:
+        p.requires_grad_(False)
+    del params, leaves
+    return {"mesh": "MeshSpec.auto(1) over NCCL", "stages": stages,
+            "microbatches": m, "steps": m + stages - 1,
+            "launches": {"forward": dict(zip(
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                fwd_launches)), "gradient": dict(zip(
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                grad_launches))},
+            "logits_err": err, "logits_gap_bf16_fp32": gap,
+            "loss": loss_pp, "loss_mesh_none": loss_none,
+            "loss_rel_err": loss_err, "loss_bound": MESH_FIRST_LOSS_REL,
+            "grad_rel_err": grad_err, "grad_bound": grad_bound,
+            "grad_leaf_rel_err": leaf_errs, "grad_worst_leaf": worst_name,
+            "grad_leaf_bound": leaf_bound,
+            "kernel_calls_vs_plain": kernel_calls,
+            "forward_s": fwd_s, "first_forward_s": first_fwd_s,
+            "forward_mesh_none_s": none_fwd_s,
+            "forward_backward_s": grad_s, "first_gradient_s": first_grad_s,
+            "forward_backward_mesh_none_s": none_grad_s,
+            "peak_mem_bytes_forward": fwd_peak,
+            "peak_mem_bytes_gradient": grad_peak, "profile": profile}
+
+
+def mesh_vit(mesh, parity):
+    """ViT-B/16 (``vit_b16_config``), bf16, seed-0 weights, VIT_IMAGES
+    random images and labels from RandomState(0): ``vit_loss_fn``'s loss
+    and gradients against the same in fp32 (the whole gradient within
+    GRAD_GAP_FACTOR times phase 8's bf16-vs-fp32 gap, each leaf within
+    GRAD_GAP_FACTOR times VIT_LEAF_READING, the loss by phase 8's rule on
+    VIT_LOSS_READING), and ``vit_loss_fn_shard`` on the world-size-1 mesh
+    against ``vit_loss_fn`` (the loss and each leaf within
+    MESH_FIRST_LOSS_REL). No kernel launches: the reference's ViT attends
+    densely."""
+    shd = importlib.import_module("ray_tpu_torch.models.sharded")
+    cfg = vit_b16_config()
+    params = vit.init_vit_params(cfg, seed=SEED, device=DEVICE)
+    leaves = trn.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.RandomState(0)
+    batch = {"images": torch.from_numpy(rng.rand(
+                 VIT_IMAGES, cfg.image_size, cfg.image_size,
+                 cfg.channels).astype(np.float32)).to(DEVICE),
+             "labels": torch.from_numpy(rng.randint(
+                 0, cfg.num_classes, VIT_IMAGES)).to(DEVICE)}
+
+    def step(c):
+        loss = vit.vit_loss_fn(params, batch, c)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    loss_b, g_b = step(cfg)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    check(launched == (0, 0, 0), f"ViT launched attention kernels "
+          f"{launched}; the reference's ViT attends densely")
+    step_s, step_times = mean_s(lambda: step(cfg), VIT_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_device(lambda: step(cfg), "one ViT-B/16 step")
+    with torch.no_grad():
+        logits = vit.vit_forward(params, batch["images"], cfg)
+    check(tuple(logits.shape) == (VIT_IMAGES, cfg.num_classes)
+          and bool(torch.isfinite(logits).all()),
+          f"ViT logits {tuple(logits.shape)} or non-finite")
+    loss_f, g_f = step(dataclasses.replace(cfg, dtype=torch.float32))
+    names = leaf_names(params)
+    ref = grad_norm(g_f)
+    gap = grad_dist(g_b, g_f) / ref
+    leaf_gaps = leaf_rel_errs(g_b, g_f, names)
+    worst_name, worst = worst_leaf(leaf_gaps)
+    del g_f
+    grad_bound = GRAD_GAP_FACTOR * parity["grad_rel_gap_bf16_fp32"]
+    leaf_bound = GRAD_GAP_FACTOR * VIT_LEAF_READING
+    loss_bound = max(GRAD_GAP_FACTOR * VIT_LOSS_READING, LOSS_GAP_FLOOR)
+    loss_gap = abs(loss_b - loss_f)
+
+    specs = vit.vit_param_specs(cfg)
+    loss_s, g_s, _ = trn.sharded_value_and_grad(
+        shd.vit_loss_fn_shard, params, specs, mesh, batch, cfg)
+    loss_s = loss_s.item()
+    shard_loss_err = abs(loss_s - loss_b) / abs(loss_b)
+    shard_grad_err = grad_dist(g_s, g_b) / ref
+    shard_leaf_errs = leaf_rel_errs(g_s, g_b, names)
+    shard_worst_name, shard_worst = worst_leaf(shard_leaf_errs)
+    del g_s, g_b
+    shard_s, _ = mean_s(lambda: trn.sharded_value_and_grad(
+        shd.vit_loss_fn_shard, params, specs, mesh, batch, cfg), VIT_TIMED)
+    print(f"ViT-B/16 ({VIT_IMAGES} images, bf16): loss {loss_b:.6f}, fp32 "
+          f"{loss_f:.6f} (|d| {loss_gap:.4g}, bound {loss_bound:.4g}); "
+          f"|g_bf16 - g_fp32| / |g_fp32| {gap:.4g} (bound {grad_bound:.4g});"
+          f" worst leaf {worst_name} {worst:.4g} (bound {leaf_bound:.4g}), "
+          + ", ".join(f"{key} {leaf_gaps[key]:.4g}" for key in (
+              "patch_embed", "patch_bias", "final_norm", "head"))
+          + f"; sharded at world size 1: loss {loss_s:.6f} (rel "
+          f"{shard_loss_err:.3g}), |g_shard - g| / |g_fp32| "
+          f"{shard_grad_err:.4g}, worst leaf {shard_worst_name} "
+          f"{shard_worst:.4g} (bound {MESH_FIRST_LOSS_REL}); no kernel "
+          f"launch (dense attention, as in the reference)")
+    print(f"ViT-B/16 timing: forward + backward {step_s:.5f} s "
+          f"({VIT_IMAGES / step_s:.1f} images/s; steps {step_times}), "
+          f"sharded at world size 1 {shard_s:.5f} s; peak {peak} bytes")
+    check(all(math.isfinite(x) for x in (loss_b, loss_f, gap, worst, loss_s,
+                                          shard_grad_err, shard_worst)),
+          "non-finite ViT loss or gradient")
+    check(gap <= grad_bound, f"ViT bf16 gradients off fp32 by {gap:.4g}, "
+          f"over {grad_bound:.4g}")
+    check(worst <= leaf_bound, f"ViT bf16 gradient of {worst_name} off "
+          f"fp32 by {worst:.4g}, over {leaf_bound:.4g}")
+    check(loss_gap <= loss_bound, f"ViT bf16 loss off fp32 by "
+          f"{loss_gap:.4g}, over {loss_bound:.4g}")
+    check(shard_loss_err <= MESH_FIRST_LOSS_REL,
+          f"vit_loss_fn_shard off vit_loss_fn by {shard_loss_err:.3g} "
+          f"relative")
+    check(shard_worst <= MESH_FIRST_LOSS_REL,
+          f"vit_loss_fn_shard's gradient of {shard_worst_name} off by "
+          f"{shard_worst:.4g}, over {MESH_FIRST_LOSS_REL}")
+    for p in leaves:
+        p.requires_grad_(False)
+    return {"config": "ViT-B/16: 224x224, patch 16, d768 L12 H12 ff3072, "
+                      "1000 classes, SwiGLU, RoPE, bf16, remat off",
+            "images": VIT_IMAGES, "loss": loss_b, "loss_fp32": loss_f,
+            "loss_gap": loss_gap, "loss_bound": loss_bound,
+            "grad_rel_gap_bf16_fp32": gap, "grad_bound": grad_bound,
+            "grad_leaf_gap": leaf_gaps, "grad_worst_leaf": worst_name,
+            "grad_leaf_bound": leaf_bound,
+            "shard_loss": loss_s, "shard_loss_rel_err": shard_loss_err,
+            "shard_grad_rel_err": shard_grad_err,
+            "shard_grad_leaf_rel_err": shard_leaf_errs,
+            "shard_bound": MESH_FIRST_LOSS_REL,
+            "step_s": step_s, "step_times_s": step_times,
+            "images_per_s": VIT_IMAGES / step_s, "shard_step_s": shard_s,
+            "peak_mem_bytes": peak, "kernel_launches": list(launched),
+            "profile": profile,
+            "attention": "dense, as ray_tpu/models/vit.py:110"}
 
 
 def sdpa_bwd_trace_ms(qt, kt, vt, dot, iters=10):
@@ -1008,24 +1419,26 @@ SCHED_PLAIN = {"schedule_classes_cuda": (tp, "schedule_classes_plain"),
 
 class KernelRecorder:
     """While active, keeps a copy of the inputs and the outputs of the
-    first scheduler kernel call of each kind and shape (the main path
-    repeats its calls on the same inputs), so that the kernels can be
-    held against their plain versions on the main path's own inputs.
-    The wrappers themselves run and count as always."""
+    first call of each kernel wrapper of ``targets`` ({wrapper name:
+    (module, plain version's name)}) at each shape (the main path repeats
+    its calls at one shape), so that the kernels can be held against their
+    plain versions on the main path's own inputs. The wrappers themselves
+    run and count as always."""
 
-    def __init__(self):
+    def __init__(self, targets=SCHED_PLAIN):
+        self.targets = targets
         self.calls = []
         self._seen = set()
         self._saved = {}
 
     def __enter__(self):
-        for name, (mod, _) in SCHED_PLAIN.items():
+        for name, (mod, _) in self.targets.items():
             self._saved[name] = getattr(mod, name)
             setattr(mod, name, self._wrap(name, self._saved[name]))
         return self
 
     def __exit__(self, *exc):
-        for name, (mod, _) in SCHED_PLAIN.items():
+        for name, (mod, _) in self.targets.items():
             setattr(mod, name, self._saved[name])
 
     def _wrap(self, name, fn):
@@ -1478,14 +1891,20 @@ def main() -> int:
     training["memory_linear_in_s"] = memory
     train_launches = training["launches"]
     torch.cuda.empty_cache()
-    mesh = phase_mesh(training, tokens)
+    mesh, pipeline, vit_result = phase_mesh(training, tokens)
     mesh_launches = mesh["launches"]
+    pipe_launches = {key: (pipeline["launches"]["forward"][key]
+                           + pipeline["launches"]["gradient"][key])
+                     for key in ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv")}
     torch.cuda.empty_cache()
     scheduler = phase_scheduler()
 
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"mesh_training": mesh, "card": card}))
+    print(json.dumps({"pipeline": pipeline, "card": card}))
+    print(json.dumps({"vit": vit_result, "card": card}))
     print(json.dumps({"wide_head_dims": wide_head, "card": card}))
     print(json.dumps({"scheduler": scheduler, "card": card}))
     src = "ray_tpu/ops/flash_attention.py"
@@ -1495,10 +1914,12 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention.cu",
         "replaces": f"{src}:83", "replaces_fn": f"{src}::_flash_fwd_kernel",
         "launches": (serving_launches + train_launches["flash_fwd"]
-                     + mesh_launches["flash_fwd"]),
+                     + mesh_launches["flash_fwd"]
+                     + pipe_launches["flash_fwd"]),
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["flash_fwd"],
-                             "mesh_training": mesh_launches["flash_fwd"]},
+                             "mesh_training": mesh_launches["flash_fwd"],
+                             "pipeline": pipe_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -1516,11 +1937,14 @@ def main() -> int:
             "name": f"flash_bwd_{key}", "route": "cuda", "source": bwd_src,
             "replaces": f"{src}:{line}", "replaces_fn": f"{src}::{fn}",
             "launches": (train_launches[f"flash_bwd_{key}"]
-                         + mesh_launches[f"flash_bwd_{key}"]),
+                         + mesh_launches[f"flash_bwd_{key}"]
+                         + pipe_launches[f"flash_bwd_{key}"]),
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"],
                                  "mesh_training":
-                                 mesh_launches[f"flash_bwd_{key}"]},
+                                 mesh_launches[f"flash_bwd_{key}"],
+                                 "pipeline":
+                                 pipe_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],

@@ -9,6 +9,9 @@ hand-written CUDA flash-attention kernels (``ops.flash_attention``): the
 forward in ``csrc/flash_attention.cu``, the dQ and dK/dV backward in
 ``csrc/flash_attention_bwd.cu``; and the scheduler's device programs
 (``_private.scheduler``: the class-fill policy and the placement-group
-packer) as CUDA kernels in ``csrc/scheduler.cu``. The parallel layer and
-the runtime are still to come.
+packer) as CUDA kernels in ``csrc/scheduler.cu``; the mesh layer
+(``parallel``: meshes, slice meshes, multi-host process groups, the
+pipeline over ``pp``; ``collective.xla``; the sharded train step of
+``models.sharded``); and the ViT family (``models.vit``). The runtime is
+still to come.
 """

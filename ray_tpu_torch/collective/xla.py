@@ -205,6 +205,19 @@ class _AllGather(torch.autograd.Function):
         return (_ReduceScatter.apply(g, *ctx.args),) + (None,) * 4
 
 
+class _AllGatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim, x.shape[dim])
+        return _all_gather(mesh, x, axis, dim, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, n = ctx.args
+        i = mesh_lib.axis_index(mesh, axis)
+        return g.narrow(dim, i * n, n), None, None, None
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim, tiled):
@@ -279,6 +292,15 @@ def all_gather(x, axis: AxisName, *, gather_axis: int = 0,
     device dimension at ``gather_axis``."""
     return _AllGather.apply(x, current_mesh(), axis,
                             gather_axis % (x.dim() + (not tiled)), tiled)
+
+
+def all_gather_invariant(x, axis: AxisName, *, gather_axis: int = 0):
+    """Concatenate the shards along ``gather_axis`` into a value that every
+    rank of the axis then uses alike (``lax.all_gather_invariant``): its
+    gradient is this rank's slice of the cotangent, which is the same on
+    every rank, where ``all_gather``'s would sum the ranks' cotangents."""
+    return _AllGatherInvariant.apply(x, current_mesh(), axis,
+                                     gather_axis % x.dim())
 
 
 def reduce_scatter(x, axis: AxisName, *, scatter_axis: int = 0):

@@ -20,6 +20,10 @@ blocks[i].wo_mlp       [F, D]        [E, F, D]
 unembed                [D, V]
 =====================  ============  ===================================
 
+A ViT tree (``init_vit_params``, P patch size, C channels, L classes)
+holds ``patch_embed`` [P*P*C, D], ``patch_bias`` [D], ``blocks`` and
+``final_norm`` as above, and ``head`` [D, L].
+
 Both packages contract these with the same einsums, so the same numbers
 give the same logits. ``shard_params_from_jax`` gives a rank its blocks of
 the same tree over a mesh, the blocks that ``jax.device_put(x,
@@ -38,13 +42,17 @@ from ray_tpu_torch.parallel.mesh import local_block
 
 _BLOCK_KEYS = frozenset(
     {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wi", "wg", "wo_mlp"})
-_TOP_KEYS = frozenset({"embed", "final_norm", "blocks", "unembed"})
+# The top-level keys of the flagship's tree and of a ViT's, in the order
+# of the port's init_params and init_vit_params.
+_TOP_KEYS = (("embed", "final_norm", "blocks", "unembed"),
+             ("patch_embed", "patch_bias", "blocks", "final_norm", "head"))
 
 
 def params_from_jax(tree, device="cuda") -> Dict[str, Any]:
-    """The port's parameters from the JAX package's ``init_params`` tree,
-    given as numpy arrays (or anything ``np.asarray`` takes). Every array
-    becomes an fp32 tensor on ``device``."""
+    """The port's parameters from the JAX package's ``init_params`` (or
+    ``init_vit_params``) tree, given as numpy arrays (or anything
+    ``np.asarray`` takes). Every array becomes an fp32 tensor on
+    ``device``."""
     return _convert(tree, device, lambda x, path: x)
 
 
@@ -52,9 +60,10 @@ def shard_params_from_jax(tree, mesh, specs, device="cuda"
                           ) -> Dict[str, Any]:
     """This rank's blocks of the JAX package's parameter tree (numpy, as
     for ``params_from_jax``) over ``mesh`` under the spec tree ``specs``
-    (``param_specs(cfg)``): fp32 tensors on ``device``, the same blocks
-    that ``jax.device_put(x, NamedSharding(mesh, spec))`` puts on the
-    device of this rank's index."""
+    (``param_specs(cfg)``, or ``vit_param_specs(cfg)`` for a ViT tree):
+    fp32 tensors on ``device``, the same blocks that ``jax.device_put(x,
+    NamedSharding(mesh, spec))`` puts on the device of this rank's
+    index."""
     def block(x, path):
         spec = specs
         for key in path:
@@ -65,9 +74,10 @@ def shard_params_from_jax(tree, mesh, specs, device="cuda"
 
 def _convert(tree, device, take) -> Dict[str, Any]:
     dev = resolve_device(device)
-    if set(tree) != _TOP_KEYS:
-        raise ValueError(f"expected keys {sorted(_TOP_KEYS)}, got "
-                         f"{sorted(tree)}")
+    top = next((keys for keys in _TOP_KEYS if set(tree) == set(keys)), None)
+    if top is None:
+        raise ValueError(f"expected keys {sorted(_TOP_KEYS[0])} or "
+                         f"{sorted(_TOP_KEYS[1])}, got {sorted(tree)}")
 
     def tensor(x, *path):
         full = torch.from_numpy(np.asarray(x, dtype=np.float32))
@@ -80,7 +90,5 @@ def _convert(tree, device, take) -> Dict[str, Any]:
             raise ValueError(f"block {i}: unexpected keys {sorted(keys)}")
         blocks.append({name: tensor(x, "blocks", i, name)
                        for name, x in block.items()})
-    return {"embed": tensor(tree["embed"], "embed"),
-            "final_norm": tensor(tree["final_norm"], "final_norm"),
-            "blocks": blocks,
-            "unembed": tensor(tree["unembed"], "unembed")}
+    return {key: blocks if key == "blocks" else tensor(tree[key], key)
+            for key in top}

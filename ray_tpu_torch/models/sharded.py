@@ -1,9 +1,12 @@
-"""The flagship's loss on a mesh, as one SPMD program per rank.
+"""The flagship's and ViT's losses on a mesh, as one SPMD program per rank.
 
 The JAX package runs ``loss_fn`` on global arrays and lets GSPMD place the
-collectives. Here each rank runs this module's ``loss_fn_shard`` on its own
-blocks of the parameters (laid out by ``param_specs``) and of the batch,
-with the collectives written out (``collective.xla``):
+collectives. Here each rank runs this module's ``loss_fn_shard`` (or
+``vit_loss_fn_shard``) on its own blocks of the parameters (laid out by
+``param_specs``) and of the batch, with the collectives written out
+(``collective.xla``). The decoder block is ``transformer._block_forward``
+itself, run with ``MeshHooks``, which put the collectives where the
+block's hooks are:
 
 - fsdp: each weight is gathered over ``fsdp`` on its d_model dim where it
   is used (``all_gather``, whose gradient is the ``reduce_scatter`` that
@@ -40,11 +43,13 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ray_tpu_torch.collective import xla
 from ray_tpu_torch.models.transformer import (
-    TransformerConfig, _attention, param_specs, rms_norm, rope)
+    BlockHooks, TransformerConfig, _attention, apply_blocks, param_specs,
+    rms_norm)
+from ray_tpu_torch.models.vit import (
+    ViTConfig, ViTHooks, vit_forward, vit_nll, vit_param_specs)
 from ray_tpu_torch.parallel.mesh import (
     BATCH_AXES, DATA_AXES, MESH_AXES, P, axis_size, spec_axes)
 
@@ -58,23 +63,42 @@ def _gather_fsdp(w: torch.Tensor, spec: P) -> torch.Tensor:
 
 
 def check_shardable(cfg: TransformerConfig, mesh) -> None:
-    """Raise on a config that the mesh cannot shard as param_specs says."""
-    tp, fsdp = axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
-    if axis_size(mesh, "pp") != 1:
-        raise ValueError("the sharded train step takes no pipeline axis "
-                         "(pp must be 1)")
-    sizes = [("n_heads", cfg.n_heads, "tp", tp),
+    """Raise on a config that the mesh cannot shard as param_specs says.
+    A pp axis is taken as the JAX package's GSPMD step takes it: no spec
+    names it, so its ranks hold and compute the same."""
+    _check_divisible(mesh, _block_sizes(cfg) + [
+        ("vocab_size", cfg.vocab_size, "tp")])
+
+
+def _block_sizes(cfg: TransformerConfig):
+    sizes = [("n_heads", cfg.n_heads, "tp"),
              ("n_kv_heads (GQA reads whole KV heads on each tp rank)",
-              cfg.n_kv_heads, "tp", tp),
-             ("d_ff", cfg.d_ff, "tp", tp),
-             ("vocab_size", cfg.vocab_size, "tp", tp),
-             ("d_model", cfg.d_model, "fsdp", fsdp)]
+              cfg.n_kv_heads, "tp"),
+             ("d_ff", cfg.d_ff, "tp"),
+             ("d_model", cfg.d_model, "fsdp")]
     if cfg.use_moe:
-        sizes.append(("n_experts", cfg.n_experts, "tp", tp))
-    for name, n, axis, by in sizes:
+        sizes.append(("n_experts", cfg.n_experts, "tp"))
+    return sizes
+
+
+def _check_divisible(mesh, sizes) -> None:
+    for name, n, axis in sizes:
+        by = axis_size(mesh, axis)
         if n % by:
             raise ValueError(f"{name} = {n} is not divisible by "
                              f"{axis} = {by}")
+
+
+def check_vit_shardable(cfg: ViTConfig, mesh) -> None:
+    """Raise on a ViT config that the mesh cannot shard as
+    ``vit_param_specs`` says, or on an sp axis (the patch sequence is not
+    split)."""
+    if axis_size(mesh, "sp") != 1:
+        raise ValueError(f"vit_loss_fn_shard splits no patch sequence: sp "
+                         f"must be 1, not {axis_size(mesh, 'sp')}")
+    _check_divisible(mesh, _block_sizes(cfg.block_config()) + [
+        ("d_model (patch embedding columns, head rows)", cfg.d_model,
+         "tp")])
 
 
 def attention_body(attn_fn, sp: int):
@@ -124,59 +148,29 @@ def _vocab_parallel_nll(logits: torch.Tensor,
     return torch.log(sum_exp) + top - target
 
 
-def _moe_shard(block, h, cfg: TransformerConfig, specs) -> torch.Tensor:
-    """``transformer._moe_mlp`` with the experts sharded over tp: the
-    routing is computed whole on every tp rank, each rank runs its
-    experts, and the partial sums add over tp."""
-    dt = cfg.dtype
-    router = _gather_fsdp(block["router"], specs["router"])
-    logits = h @ router.to(dt)                               # [B,S,E]
-    weights = torch.softmax(logits.float(), dim=-1)
-    top_w, top_i = torch.topk(weights, cfg.expert_top_k, dim=-1)
-    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-    mask = F.one_hot(top_i, cfg.n_experts).float()
-    combine = torch.einsum("bsk,bske->bse", top_w, mask).to(dt)
-    e_loc = block["wi"].shape[0]
-    e0 = xla.axis_index("tp") * e_loc
-    combine = xla.pvary(combine, "tp")[..., e0:e0 + e_loc]
-    hf = xla.pvary(h, "tp")
-    wg, wi, wo = (_gather_fsdp(block[n], specs[n]).to(dt)
-                  for n in ("wg", "wi", "wo_mlp"))
-    gate = F.silu(torch.einsum("bsd,edf->bsef", hf, wg))
-    up = torch.einsum("bsd,edf->bsef", hf, wi)
-    out = torch.einsum("bsef,efd->bsed", gate * up, wo)
-    return xla.psum(torch.einsum("bsed,bse->bsd", out, combine), "tp")
+class MeshHooks(BlockHooks):
+    """The block's hooks on a rank of a mesh: each weight gathered over
+    fsdp where it is used, the tp-sharded products entered through
+    ``pvary`` and left through ``psum``, and the routing weights of this
+    tp rank's experts (the routing is computed whole on every tp rank,
+    each rank runs its experts, and the partial sums add over tp)."""
 
+    def __init__(self, specs):
+        self.specs = specs
 
-def _block_shard(block, x, positions, cfg: TransformerConfig, attn_fn,
-                 specs) -> torch.Tensor:
-    """``transformer._block_forward`` on this rank's blocks: local heads
-    (N/tp, K/tp) and ff columns (F/tp), the sequence shard of sp."""
-    dt = cfg.dtype
+    def weight(self, block, name):
+        return _gather_fsdp(block[name], self.specs[name])
 
-    def weight(name):
-        return _gather_fsdp(block[name], specs[name]).to(dt)
+    def enter_tp(self, h):
+        return xla.pvary(h, "tp")
 
-    h = xla.pvary(rms_norm(x, block["attn_norm"]), "tp")
-    q = torch.einsum("bsd,dnh->bsnh", h, weight("wq"))
-    k = torch.einsum("bsd,dnh->bsnh", h, weight("wk"))
-    v = torch.einsum("bsd,dnh->bsnh", h, weight("wv"))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    if rep > 1:
-        k = torch.repeat_interleave(k, rep, dim=2)
-        v = torch.repeat_interleave(v, rep, dim=2)
-    attn = attn_fn(q, k, v)
-    x = x + xla.psum(torch.einsum("bsnh,nhd->bsd", attn, weight("wo")), "tp")
+    def leave_tp(self, y):
+        return xla.psum(y, "tp")
 
-    h = rms_norm(x, block["mlp_norm"])
-    if "router" in block:
-        return x + _moe_shard(block, h, cfg, specs)
-    hf = xla.pvary(h, "tp")
-    gate = F.silu(hf @ weight("wg"))
-    up = hf @ weight("wi")
-    return x + xla.psum((gate * up) @ weight("wo_mlp"), "tp")
+    def experts(self, combine, block):
+        e_loc = block["wi"].shape[0]
+        e0 = xla.axis_index("tp") * e_loc
+        return xla.pvary(combine, "tp")[..., e0:e0 + e_loc]
 
 
 def loss_fn_shard(params, batch: Dict[str, torch.Tensor],
@@ -219,14 +213,8 @@ def loss_fn_shard(params, batch: Dict[str, torch.Tensor],
 
     x = _embed(_gather_fsdp(params["embed"], specs["embed"]),
                local).to(cfg.dtype)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for block, bspecs in zip(params["blocks"], specs["blocks"]):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block_shard, block, x, positions, cfg, attn_fn, bspecs,
-                use_reentrant=False)
-        else:
-            x = _block_shard(block, x, positions, cfg, attn_fn, bspecs)
+    x = apply_blocks(params["blocks"], x, positions, cfg, attn_fn,
+                     [MeshHooks(bspecs) for bspecs in specs["blocks"]])
     x = xla.pvary(rms_norm(x, params["final_norm"])[:, :n_pred], "tp")
     unembed = _gather_fsdp(params["unembed"], specs["unembed"])
     logits = (x @ unembed.to(cfg.dtype)).float()        # [bl, n_pred, V/tp]
@@ -237,6 +225,53 @@ def loss_fn_shard(params, batch: Dict[str, torch.Tensor],
         local_mask = mask[r0:r0 + bl, s0 + 1:s0 + 1 + n_pred].float()
         return (nll * local_mask).sum() / total
     return nll.sum() / (b * (s - 1))
+
+
+class ViTMeshHooks(ViTHooks):
+    """``vit_forward``'s hooks on a rank of a mesh: the patch embedding's
+    columns gathered over tp into the weight that every tp rank then uses
+    alike (its gradient this rank's columns, not the tp ranks' sum), the
+    blocks run with ``MeshHooks`` on the replicated activation, and the
+    head's rows sharded over tp: each tp rank contracts its slice of the
+    pooled features and the logits are summed over tp."""
+
+    def __init__(self, cfg: ViTConfig):
+        self.blocks = [MeshHooks(bspecs)
+                       for bspecs in vit_param_specs(cfg)["blocks"]]
+
+    def patch_embed(self, params):
+        return xla.all_gather_invariant(params["patch_embed"], "tp",
+                                        gather_axis=1)
+
+    def enter_head(self, pooled):
+        dl = pooled.shape[-1] // xla.axis_size("tp")
+        d0 = xla.axis_index("tp") * dl
+        return xla.pvary(pooled, "tp")[..., d0:d0 + dl]
+
+    def leave_head(self, logits):
+        return xla.psum(logits, "tp")
+
+
+def vit_loss_fn_shard(params, batch: Dict[str, torch.Tensor],
+                      cfg: ViTConfig) -> torch.Tensor:
+    """This rank's share of ``vit_loss_fn`` (call within
+    ``xla.axis_env(mesh)``), the rank's blocks ``params`` laid out by
+    ``vit_param_specs(cfg)``: ``vit_forward`` with ``ViTMeshHooks`` on
+    this rank's images. ``batch`` holds the whole ``images`` [B, H, W, C]
+    and ``labels`` [B], the same on every rank, split here over (dp,
+    fsdp)."""
+    check_vit_shardable(cfg, xla.current_mesh())
+    images, labels = batch["images"], batch["labels"]
+    b = images.shape[0]
+    n_data = xla.axis_size(BATCH_AXES)
+    if b % n_data:
+        raise ValueError(f"{b} images do not split over {n_data} data "
+                         f"ranks")
+    bl = b // n_data
+    r0 = xla.axis_index(BATCH_AXES) * bl
+    logits = vit_forward(params, images[r0:r0 + bl], cfg,
+                         ViTMeshHooks(cfg))
+    return vit_nll(logits, labels[r0:r0 + bl]).sum() / b
 
 
 def replicated_axes(spec: P) -> List[str]:

@@ -34,7 +34,7 @@ from ray_tpu_torch.collective import xla
 from ray_tpu_torch.models import sharded
 from ray_tpu_torch.models.transformer import (
     TransformerConfig, init_params, loss_fn, param_specs)
-from ray_tpu_torch.parallel.mesh import P, tree_map
+from ray_tpu_torch.parallel.mesh import DATA_AXES, P, tree_map
 
 
 def param_leaves(tree) -> List[torch.Tensor]:
@@ -163,6 +163,23 @@ def spec_leaves(cfg: TransformerConfig, params) -> List[P]:
                                  param_specs(cfg)))
 
 
+def sharded_value_and_grad(loss_shard, params, specs, mesh, *args):
+    """On each rank of ``mesh``: the global loss ``loss_shard(params,
+    *args)`` (a rank's share, as ``sharded.loss_fn_shard`` gives it), its
+    gradients for the rank's blocks ``params`` (laid out by the spec tree
+    ``specs``), summed over the ranks that hold the same block, and their
+    global norm. Every rank gets the same loss and norm."""
+    leaves = param_leaves(params)
+    leaf_specs = param_leaves(tree_map(lambda _, spec: spec, params, specs))
+    with xla.axis_env(mesh):
+        loss = loss_shard(params, *args)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = sharded.sync_grads(grads, leaf_specs)
+        norm = sharded.global_norm(grads, leaf_specs)
+        loss = xla.psum(loss.detach(), DATA_AXES)
+    return loss, grads, norm
+
+
 def state_specs(cfg: TransformerConfig, tx: AdamW,
                 params_like=None) -> TrainState:
     """PartitionSpec tree for the full TrainState: Adam's moments shard
@@ -232,7 +249,7 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
             return loss, grads, None
     else:
         from ray_tpu_torch.ops.ring_attention import make_attention_fn
-        from ray_tpu_torch.parallel.mesh import DATA_AXES, axis_size
+        from ray_tpu_torch.parallel.mesh import axis_size
         sharded.check_shardable(cfg, mesh)
         if attn_fn is None and axis_size(mesh, "sp") > 1:
             attn_fn = make_attention_fn(mesh, impl="ring")
@@ -243,16 +260,9 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
             if set(batch) != set(batch_keys):
                 raise ValueError(f"batch keys {sorted(batch)} are not "
                                  f"batch_keys {sorted(batch_keys)}")
-            leaves = param_leaves(state.params)
-            specs = spec_leaves(cfg, state.params)
-            with xla.axis_env(mesh):
-                loss = sharded.loss_fn_shard(state.params, batch, cfg,
-                                             attn_fn)
-                grads = torch.autograd.grad(loss, leaves)
-                grads = sharded.sync_grads(grads, specs)
-                norm = sharded.global_norm(grads, specs)
-                loss = xla.psum(loss.detach(), DATA_AXES)
-            return loss, grads, norm
+            return sharded_value_and_grad(
+                sharded.loss_fn_shard, state.params, param_specs(cfg), mesh,
+                batch, cfg, attn_fn)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if not donate:

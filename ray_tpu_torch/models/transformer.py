@@ -12,7 +12,10 @@ kernels for tensors on the card, their plain versions on the CPU.
 
 ``param_specs`` gives the sharding layout over a mesh, the JAX package's
 tree with the port's ``P``; ``models/sharded.py`` runs the forward and the
-loss on each rank's blocks.
+loss on each rank's blocks. ``_block_forward`` is the only decoder block:
+the sharded loss runs it with hooks that add the collectives
+(``BlockHooks``, each the identity here), the pipeline's stages and the
+ViT run it as it is.
 """
 
 from __future__ import annotations
@@ -203,13 +206,46 @@ def _attention(q, k, v, *, causal: bool = True):
     return torch.einsum("bnqk,bknh->bqnh", probs.to(v.dtype), v)
 
 
+class BlockHooks:
+    """Where the block on a mesh differs from the block on one device.
+    Each hook is the identity here; ``models/sharded.py`` overrides them
+    with the collectives of a rank's share of the block."""
+
+    def weight(self, block, name: str) -> torch.Tensor:
+        """The weight ``name`` of ``block`` as the products use it."""
+        return block[name]
+
+    def enter_tp(self, h: torch.Tensor) -> torch.Tensor:
+        """A replicated activation entering a head- or ff-sharded
+        product."""
+        return h
+
+    def leave_tp(self, y: torch.Tensor) -> torch.Tensor:
+        """The partial sum a head- or ff-sharded product leaves."""
+        return y
+
+    def experts(self, combine: torch.Tensor, block) -> torch.Tensor:
+        """The routing weights [B, S, E] of the experts this block
+        holds."""
+        return combine
+
+
+NO_MESH = BlockHooks()
+
+
 def _block_forward(block, x, positions, cfg: TransformerConfig,
-                   attn_fn=None):
+                   attn_fn=None, hooks: BlockHooks = NO_MESH):
+    """One decoder block, the only one: ``forward``, the sharded loss
+    (with its hooks) and the pipeline's stages all run it."""
     dt = cfg.dtype
-    h = rms_norm(x, block["attn_norm"])
-    q = torch.einsum("bsd,dnh->bsnh", h, block["wq"].to(dt))
-    k = torch.einsum("bsd,dnh->bsnh", h, block["wk"].to(dt))
-    v = torch.einsum("bsd,dnh->bsnh", h, block["wv"].to(dt))
+
+    def weight(name):
+        return hooks.weight(block, name).to(dt)
+
+    h = hooks.enter_tp(rms_norm(x, block["attn_norm"]))
+    q = torch.einsum("bsd,dnh->bsnh", h, weight("wq"))
+    k = torch.einsum("bsd,dnh->bsnh", h, weight("wk"))
+    v = torch.einsum("bsd,dnh->bsnh", h, weight("wv"))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     # GQA: each kv head serves `rep` consecutive query heads.
@@ -218,32 +254,53 @@ def _block_forward(block, x, positions, cfg: TransformerConfig,
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     attn = (attn_fn or _attention)(q, k, v)
-    x = x + torch.einsum("bsnh,nhd->bsd", attn, block["wo"].to(dt))
+    x = x + hooks.leave_tp(torch.einsum("bsnh,nhd->bsd", attn, weight("wo")))
 
     h = rms_norm(x, block["mlp_norm"])
     if "router" in block:
-        x = x + _moe_mlp(block, h, cfg)
-    else:
-        gate = F.silu(h @ block["wg"].to(dt))
-        up = h @ block["wi"].to(dt)
-        x = x + (gate * up) @ block["wo_mlp"].to(dt)
-    return x
+        return x + _moe_mlp(block, h, cfg, hooks)
+    hf = hooks.enter_tp(h)
+    gate = F.silu(hf @ weight("wg"))
+    up = hf @ weight("wi")
+    return x + hooks.leave_tp((gate * up) @ weight("wo_mlp"))
 
 
-def _moe_mlp(block, h, cfg: TransformerConfig):
+def _moe_mlp(block, h, cfg: TransformerConfig, hooks: BlockHooks = NO_MESH):
     """Dense-einsum MoE: every expert sees every token, masked by the
-    router weights."""
+    router weights. The routing is computed whole; ``hooks.experts``
+    keeps the weights of the experts the block holds."""
     dt = cfg.dtype
-    logits = h @ block["router"].to(dt)                      # [B,S,E]
+    logits = h @ hooks.weight(block, "router").to(dt)        # [B,S,E]
     weights = torch.softmax(logits.float(), dim=-1)
     top_w, top_i = torch.topk(weights, cfg.expert_top_k, dim=-1)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     mask = F.one_hot(top_i, cfg.n_experts).float()
     combine = torch.einsum("bsk,bske->bse", top_w, mask).to(dt)
-    gate = F.silu(torch.einsum("bsd,edf->bsef", h, block["wg"].to(dt)))
-    up = torch.einsum("bsd,edf->bsef", h, block["wi"].to(dt))
-    out = torch.einsum("bsef,efd->bsed", gate * up, block["wo_mlp"].to(dt))
-    return torch.einsum("bsed,bse->bsd", out, combine)
+    combine = hooks.experts(combine, block)
+    hf = hooks.enter_tp(h)
+    wg, wi, wo = (hooks.weight(block, n).to(dt)
+                  for n in ("wg", "wi", "wo_mlp"))
+    gate = F.silu(torch.einsum("bsd,edf->bsef", hf, wg))
+    up = torch.einsum("bsd,edf->bsef", hf, wi)
+    out = torch.einsum("bsef,efd->bsed", gate * up, wo)
+    return hooks.leave_tp(torch.einsum("bsed,bse->bsd", out, combine))
+
+
+def apply_blocks(blocks, x, positions, cfg: TransformerConfig, attn_fn=None,
+                 hooks=None):
+    """``x`` through ``blocks`` in turn, each under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and gradients are on.
+    ``hooks``: one ``BlockHooks`` per block (default ``NO_MESH``)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, block in enumerate(blocks):
+        args = (block, x, positions, cfg, attn_fn,
+                NO_MESH if hooks is None else hooks[i])
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_block_forward, *args,
+                                                  use_reentrant=False)
+        else:
+            x = _block_forward(*args)
+    return x
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -260,14 +317,7 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
         from ray_tpu_torch.ops.flash_attention import flash_attention
         attn_fn = lambda q, k, v, causal=True: flash_attention(  # noqa: E731
             q, k, v, causal=causal)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for block in params["blocks"]:
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block_forward, block, x, positions, cfg, attn_fn,
-                use_reentrant=False)
-        else:
-            x = _block_forward(block, x, positions, cfg, attn_fn=attn_fn)
+    x = apply_blocks(params["blocks"], x, positions, cfg, attn_fn)
     x = rms_norm(x, params["final_norm"])
     return (x @ params["unembed"].to(cfg.dtype)).float()
 

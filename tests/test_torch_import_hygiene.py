@@ -103,3 +103,55 @@ def test_scheduler_entry_points_default_to_the_card():
         for make in makers:
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
+
+
+def test_sources_cover_the_mesh_family_and_vit():
+    """The scan above reaches every module of the pipeline, slice-mesh,
+    multi-host and ViT slice."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("parallel/pipeline", "parallel/slice_mesh",
+                   "parallel/multihost", "models/vit", "models/sharded"):
+        assert f"ray_tpu_torch/{module}.py" in names
+
+
+def test_sharded_model_has_no_block_body_of_its_own():
+    """``models/sharded.py`` runs ``transformer._block_forward`` through
+    its hooks: it defines no block or MoE body (the pre-hook
+    ``_block_shard`` and ``_moe_shard``) and calls none of a block body's
+    own operations (RoPE, GQA's repeat, SwiGLU's silu)."""
+    path = ROOT / "ray_tpu_torch" / "models" / "sharded.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    defined = {node.name for node in ast.walk(tree)
+               if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+    assert not defined & {"_block_shard", "_moe_shard"}, defined
+    called = {getattr(node.func, "attr", getattr(node.func, "id", None))
+              for node in ast.walk(tree) if isinstance(node, ast.Call)}
+    body_ops = {"rope", "silu", "repeat_interleave", "_block_forward",
+                "_moe_mlp"}
+    assert not called & body_ops, called & body_ops
+
+
+
+def test_sharded_vit_runs_vit_forward():
+    """``models/sharded.py::vit_loss_fn_shard`` runs ``vit.vit_forward``
+    through its hooks and repeats none of its steps (patchify, the patch
+    positions, the ViT's attention, the log-softmax of the loss)."""
+    path = ROOT / "ray_tpu_torch" / "models" / "sharded.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    called = {getattr(node.func, "attr", getattr(node.func, "id", None))
+              for node in ast.walk(tree) if isinstance(node, ast.Call)}
+    assert {"vit_forward", "vit_nll"} <= called, called
+    own_steps = {"patchify", "patch_positions", "vit_attention",
+                 "log_softmax"}
+    assert not called & own_steps, called & own_steps
+
+def test_vit_entry_point_defaults_to_the_card():
+    from ray_tpu_torch.models import ViTConfig, init_vit_params
+    cfg = ViTConfig(image_size=8, patch_size=4, d_model=32, n_layers=1,
+                    n_heads=2, n_kv_heads=2, d_ff=32)
+    assert init_vit_params(cfg, device="cpu")["head"].device.type == "cpu"
+    if torch.cuda.is_available():
+        assert init_vit_params(cfg)["head"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_vit_params(cfg)
