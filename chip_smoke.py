@@ -94,11 +94,32 @@ Phases, each fatal on failure:
    ``CompositeSchedulingPolicy(default_policy())``, and
    ``PgKernelSolver.solve`` / ``solve_many`` over the 10,000-node cluster
    (bundles/s). No node oversubscribed; placed equals admitted.
+13. Runtime: ``ray_tpu_torch.init()`` on the card (its ``GPU`` resource
+   equals the card count; the node manager schedules through
+   ``default_policy("cuda")``). (b) The device tier on CUDA tensors:
+   ``put`` then ``get`` returns the identical tensor, ``hbm_bytes`` is its
+   ``nbytes``, the card's memory falls by its bytes once the ref and the
+   handle are gone, and a CPU task in a process worker consumes a 64 MB
+   CUDA tensor's ref (one host copy; the worker gets a CPU tensor and
+   sees no card; the card-side tensor stays primary). (c) A
+   ``num_gpus=1`` Replica actor builds the flagship from seed 0 on the
+   card and answers phase 6's 8 requests in 2 batches, each a ``put``
+   ref: 8 forward launches a batch and no backward, the logits within
+   phase 6's bound against the plain path, whether they equal phase 6's
+   bit for bit, latency beside phase 6's. (d) A ``num_gpus=1`` Trainer
+   actor takes 3 steps on phase 7's batch: 8/8/8 launches a step, each
+   step's loss and grad norm within MESH_FIRST_LOSS_REL of phase 7's.
+   Each actor is killed before the next part and its card memory must
+   come back. (e) Two ``num_gpus=0.5`` actors form a collective group and
+   run allreduce, allgather and broadcast of seeded CUDA tensors, equal
+   to numpy's. (f) A burst of 4,096 ``num_cpus=0.001`` no-op tasks:
+   tasks/s and the ``schedule_classes`` launches it took.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
-``{"vit": ...}`` and ``{"kernels": [...]}`` lines, and last the result line
+``{"vit": ...}``, ``{"runtime": ...}`` and ``{"kernels": [...]}`` lines,
+and last the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1871,7 +1892,434 @@ def phase_serving():
         "answers_head": answers[:2],
         "profile": profile,
     }
-    return serving, launches
+    # What the runtime phase's Replica actor is held to: the answers, the
+    # first batch's last-position logits and the sum of its logits.
+    direct = {"answers": answers, "latency_s": latencies,
+              "last_logits": first_logits[:, -1].float().cpu(),
+              "logits_sum": first_logits.sum(dtype=torch.float64).item(),
+              "logits_gap_bf16_fp32": gap}
+    return serving, launches, direct
+
+
+# -- the runtime ---------------------------------------------------------
+
+RUNTIME_SPILL_BYTES = 64 << 20        # the CUDA tensor a CPU task consumes
+RUNTIME_TRAIN_STEPS = 3
+RUNTIME_COLL_ELEMS = 1 << 20          # fp32 elements per rank
+RUNTIME_BURST = 4096                  # no-op tasks of num_cpus=0.001
+RUNTIME_FREE_SLACK = 16 << 20         # bytes a killed actor may leave
+RUNTIME_PINGS = 50                    # empty actor calls timed
+RUNTIME_FREE_WAIT_S = 30.0
+
+
+def _spill_probe(x):
+    """A CPU task, run in a process worker: what its argument arrived as,
+    whether that worker sees a card, and the argument's sum."""
+    import torch as worker_torch     # loaded already, by the unpickling
+    return {"type": type(x).__name__, "device": str(x.device),
+            "cuda_available": worker_torch.cuda.is_available(),
+            "sum": float(x.double().sum())}
+
+
+def _noop():
+    return None
+
+
+class ReplicaActor:
+    """The serving phase's Replica as a GPU-demand actor of the runtime:
+    it builds the flagship from the seed on the card and answers each
+    batch, passed as an object ref, with the answers, the last-position
+    logits and the sum of the logits."""
+
+    def __init__(self):
+        self.cfg = flagship_config()
+        self.params = tfm.init_params(self.cfg, seed=SEED, device=DEVICE)
+        self.replica = Replica(self.cfg, self.params, BATCH, SEQ)
+        self.first_logits = None
+
+    def ready(self):
+        return True
+
+    def answer(self, batch):
+        """What the serving phase's Replica returns, and the time of that
+        call in the actor (it ends in a host copy, so it is synced)."""
+        t0 = time.perf_counter()
+        answers = self.replica(batch)
+        forward_s = time.perf_counter() - t0
+        if self.first_logits is None:
+            self.first_logits = self.replica.last_logits
+        return {"answers": answers, "forward_s": forward_s}
+
+    def first_logits_record(self):
+        """The first batch's last-position logits and the sum of its
+        logits, as the serving phase records them."""
+        return {"last_logits": self.first_logits[:, -1].float().cpu(),
+                "logits_sum": self.first_logits.sum(
+                    dtype=torch.float64).item()}
+
+    def plain_gap(self, batch):
+        """The first batch's logits against the plain attention path on
+        the same batch: |kernel - plain bf16| and |plain bf16 - plain
+        fp32|, as the serving phase reads them."""
+        with torch.inference_mode():
+            plain_bf16 = tfm.forward(self.params, batch, dataclasses.replace(
+                self.cfg, use_flash=False))
+            plain_fp32 = tfm.forward(self.params, batch, dataclasses.replace(
+                self.cfg, use_flash=False, dtype=torch.float32))
+        return ((self.first_logits - plain_bf16).abs().max().item(),
+                (plain_bf16 - plain_fp32).abs().max().item())
+
+
+class TrainerActor:
+    """The training phase's step as a GPU-demand actor: the seed-0 state
+    on the card, one ``make_train_step`` step a call."""
+
+    def __init__(self):
+        cfg = flagship_config()
+        tx = trn.make_optimizer(total_steps=1000)
+        self.state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE)
+        self.step = trn.make_train_step(cfg, tx)
+        torch.cuda.synchronize()
+
+    def ready(self):
+        return True
+
+    def train_step(self, tokens):
+        t0 = time.perf_counter()
+        self.state, metrics = self.step(self.state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        return {"loss": metrics["loss"].item(),
+                "grad_norm": metrics["grad_norm"].item(),
+                "step": int(metrics["step"]), "step_s": step_s}
+
+
+class CollectiveMember:
+    """A rank of an actor collective group (the ``shm`` host plane)."""
+
+    def _join_collective_group(self, world, rank, backend, name):
+        col = importlib.import_module("ray_tpu_torch.collective")
+        col.init_collective_group(world, rank, backend, name,
+                                  timeout_s=60.0)
+        self.group = name
+        return rank
+
+    def run(self, x):
+        col = importlib.import_module("ray_tpu_torch.collective")
+        t0 = time.perf_counter()
+        out = {"allreduce": col.allreduce(x, self.group),
+               "allgather": np.stack(col.allgather(x, self.group)),
+               "broadcast": col.broadcast(x, 1, self.group)}
+        out["s"] = time.perf_counter() - t0
+        return out
+
+    def leave(self):
+        importlib.import_module("ray_tpu_torch.collective") \
+            .destroy_collective_group(self.group)
+
+
+def card_bytes_without_workspaces():
+    """The card's allocated bytes after cuBLAS's per-thread workspaces
+    are released: each thread that runs a matmul holds one (32 MiB on
+    sm_90) through the caching allocator, library state rather than a
+    tensor of the caller's."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def kill_and_check_freed(rt, actor, baseline, what):
+    """Kill ``actor`` and wait until the card's allocated bytes fall back
+    to ``baseline``: the actor's tensors must go with it."""
+    import gc
+    rt.kill(actor)
+    deadline = time.perf_counter() + RUNTIME_FREE_WAIT_S
+    while True:
+        gc.collect()
+        left = card_bytes_without_workspaces() - baseline
+        if left <= RUNTIME_FREE_SLACK or time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    check(left <= RUNTIME_FREE_SLACK,
+          f"{what}: {left} bytes still allocated after kill")
+    return left
+
+
+def runtime_device_tier(rt, w):
+    """(b) CUDA tensors in the device tier: the identical object back,
+    ``hbm_bytes``, the card's memory freed on the refcount's zero, and a
+    64 MB tensor consumed by a CPU task in a process worker."""
+    import gc
+    # the policy's device probe allocates from a thread of its own: let
+    # it finish before the card's memory is counted
+    for thread in list(tp._device_rt_threads.values()):
+        thread.join(timeout=60)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = torch.ones(RUNTIME_SPILL_BYTES // 4, device=DEVICE)
+    nbytes = t.nbytes
+    ref = rt.put(t)
+    check(rt.get(ref) is t, "get of a put CUDA tensor is not the same object")
+    hbm = w.device_store.stats()["hbm_bytes"]
+    check(hbm == nbytes, f"hbm_bytes {hbm}, tensor {nbytes}")
+    del t, ref
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before + nbytes - torch.cuda.memory_allocated()
+    check(freed == nbytes, f"{freed} bytes freed of a {nbytes}-byte tensor")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    t = torch.rand(RUNTIME_SPILL_BYTES // 4, generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.cpu()
+    d2h_s = time.perf_counter() - t0
+    spills = []
+    host_copy = w._ensure_host_copy
+
+    def timed_host_copy(oid):
+        t0 = time.perf_counter()
+        out = host_copy(oid)
+        spills.append(time.perf_counter() - t0)
+        return out
+
+    w._ensure_host_copy = w.node_group._ensure_host_copy_cb = timed_host_copy
+    probe = rt.remote(num_cpus=1)(_spill_probe)
+    ref = rt.put(t)
+    rounds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = rt.get(probe.remote(ref), timeout=300)
+        rounds.append(time.perf_counter() - t0)
+    want = float(t.double().sum())
+    stats = w.device_store.stats()
+    print(f"runtime: 64 MB CUDA tensor to a process worker: {got}; spills "
+          f"{stats['num_spilled_to_host']} ({spills} s), round trips "
+          f"{rounds} s (the first starts a worker), device-to-host copy "
+          f"{d2h_s:.5f} s")
+    check(stats["num_spilled_to_host"] == 1,
+          f"{stats['num_spilled_to_host']} host copies, expected 1")
+    check(got["type"] == "Tensor" and got["device"] == "cpu",
+          f"the worker received {got['type']} on {got['device']}")
+    check(got["cuda_available"] is False, "the process worker sees a card")
+    check(abs(got["sum"] - want) <= 1e-9 * abs(want),
+          f"sum {got['sum']} in the worker, {want} on the card")
+    check(rt.get(ref) is t, "the card-side tensor is no longer primary")
+    del t, ref
+    return {"put_get_identical": True, "hbm_bytes": hbm,
+            "freed_bytes": freed, "spill_bytes": RUNTIME_SPILL_BYTES,
+            "num_spilled_to_host": stats["num_spilled_to_host"],
+            "host_copy_s": spills, "task_round_trip_s": rounds,
+            "d2h_copy_s": d2h_s, "worker_saw": got}
+
+
+def runtime_replica(rt, w, direct):
+    """(c) The serving phase's 8 requests through a Replica actor, each
+    batch a ``put`` ref that the actor, on a thread of this process,
+    takes as the tensor itself (no host copy)."""
+    cfg = flagship_config()
+    baseline = card_bytes_without_workspaces()
+    actor = rt.remote(num_gpus=1)(ReplicaActor).remote()
+    rt.get(actor.ready.remote(), timeout=600)
+    pings = []
+    for _ in range(RUNTIME_PINGS):
+        t0 = time.perf_counter()
+        rt.get(actor.ready.remote(), timeout=60)
+        pings.append(time.perf_counter() - t0)
+    ping_s = float(np.median(pings))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    requests = torch.randint(0, cfg.vocab_size, (N_REQUESTS, SEQ),
+                             generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spilled_before = w.device_store.stats()["num_spilled_to_host"]
+    reset_launch_counts()
+    latencies, replies = [], []
+    for i in range(N_REQUESTS // BATCH):
+        ref = rt.put(requests[i * BATCH:(i + 1) * BATCH])
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        replies.append(rt.get(actor.answer.remote(ref), timeout=600))
+        latencies.append(time.perf_counter() - t0)
+        per_batch = tuple(a - b for a, b in zip(launch_counts(), counts))
+        check(per_batch == (cfg.n_layers, 0, 0),
+              f"actor batch {i}: (fwd, dQ, dK/dV) launches {per_batch}, "
+              f"expected ({cfg.n_layers}, 0, 0)")
+        del ref
+    launches = launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    spilled = w.device_store.stats()["num_spilled_to_host"] - spilled_before
+    check(spilled == 0, f"{spilled} host copies of the actor's batches")
+    answers = [a for r in replies for a in r["answers"]]
+    check(len(answers) == N_REQUESTS, f"{len(answers)} answers")
+    check(all(0 <= a["next_token"] < cfg.vocab_size
+              and all(math.isfinite(x) for x in a["logits_head"])
+              for a in answers), "malformed answer")
+    err, gap = rt.get(actor.plain_gap.remote(rt.put(requests[:BATCH])),
+                      timeout=600)
+    check(gap > 0 and err <= LOGITS_GAP_FACTOR * gap,
+          f"actor logits off the plain path by {err}, over "
+          f"{LOGITS_GAP_FACTOR} x the bf16/fp32 gap {gap}")
+    head_err = max(abs(x - y) for a, b in zip(answers, direct["answers"])
+                   for x, y in zip(a["logits_head"], b["logits_head"]))
+    bound = LOGITS_GAP_FACTOR * direct["logits_gap_bf16_fp32"]
+    check(head_err <= bound, f"actor logits heads off the direct run's by "
+          f"{head_err}, over {bound}")
+    same_tokens = sum(a["next_token"] == b["next_token"]
+                      for a, b in zip(answers, direct["answers"]))
+    record = rt.get(actor.first_logits_record.remote(), timeout=600)
+    bit_equal = (answers == direct["answers"]
+                 and torch.equal(record["last_logits"],
+                                 direct["last_logits"])
+                 and record["logits_sum"] == direct["logits_sum"])
+    forward_s = [r["forward_s"] for r in replies]
+    print(f"runtime: Replica actor batch latency {latencies} s, of which "
+          f"the forward in the actor {forward_s} s (direct "
+          f"{direct['latency_s']} s); an empty actor call {ping_s:.6f} s "
+          f"(median of {RUNTIME_PINGS}); launches {launches}; |actor - plain "
+          f"bf16| {err:.4g} (gap {gap:.4g}); greedy tokens equal to the "
+          f"direct run's {same_tokens}/{N_REQUESTS}; bit for bit equal to "
+          f"the direct run: {bit_equal}; peak {peak_bytes} bytes")
+    del requests
+    left = kill_and_check_freed(rt, actor, baseline, "Replica actor")
+    return {"batch_latency_s": latencies, "forward_in_actor_s": forward_s,
+            "direct_batch_latency_s": direct["latency_s"],
+            "empty_call_s": ping_s,
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dq": launches[1],
+                         "flash_bwd_dkv": launches[2]},
+            "logits_err": err, "logits_gap_bf16_fp32": gap,
+            "head_err_vs_direct": head_err,
+            "next_tokens_equal_direct": same_tokens,
+            "bit_equal_direct": bit_equal, "peak_mem_bytes": peak_bytes,
+            "left_after_kill_bytes": left}
+
+
+def runtime_trainer(rt, training, tokens):
+    """(d) 3 steps of the training phase through a Trainer actor."""
+    cfg = flagship_config()
+    baseline = card_bytes_without_workspaces()
+    actor = rt.remote(num_gpus=1)(TrainerActor).remote()
+    rt.get(actor.ready.remote(), timeout=600)
+    ref = rt.put(tokens)
+    reset_launch_counts()
+    steps, round_trips = [], []
+    for i in range(RUNTIME_TRAIN_STEPS):
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        steps.append(rt.get(actor.train_step.remote(ref), timeout=600))
+        round_trips.append(time.perf_counter() - t0)
+        per_step = tuple(a - b for a, b in zip(launch_counts(), counts))
+        check(per_step == (cfg.n_layers,) * 3,
+              f"actor step {i}: (fwd, dQ, dK/dV) launches {per_step}, "
+              f"expected {cfg.n_layers} each")
+        got = steps[-1]
+        want_loss, want_norm = training["losses"][i], training["grad_norms"][i]
+        check(got["step"] == i, f"actor step {i} reported {got['step']}")
+        for name, x, y in (("loss", got["loss"], want_loss),
+                           ("grad norm", got["grad_norm"], want_norm)):
+            check(math.isfinite(x) and abs(x - y) <= MESH_FIRST_LOSS_REL
+                  * abs(y), f"actor step {i}: {name} {x}, the training "
+                  f"phase's {y}")
+    launches = launch_counts()
+    print(f"runtime: Trainer actor losses {[s['loss'] for s in steps]} "
+          f"(direct {training['losses'][:RUNTIME_TRAIN_STEPS]}); step time "
+          f"in the actor {[s['step_s'] for s in steps]} s, through the "
+          f"runtime {round_trips} s (direct "
+          f"{training['step_time_s'][:RUNTIME_TRAIN_STEPS]} s); launches "
+          f"{launches}")
+    del ref
+    left = kill_and_check_freed(rt, actor, baseline, "Trainer actor")
+    return {"steps": steps, "round_trip_s": round_trips,
+            "direct_step_time_s": training["step_time_s"][
+                :RUNTIME_TRAIN_STEPS],
+            "direct_losses": training["losses"][:RUNTIME_TRAIN_STEPS],
+            "direct_grad_norms": training["grad_norms"][:RUNTIME_TRAIN_STEPS],
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dq": launches[1],
+                         "flash_bwd_dkv": launches[2]},
+            "left_after_kill_bytes": left}
+
+
+def runtime_collective(rt):
+    """(e) Two num_gpus=0.5 actors on the card in one collective group."""
+    col = importlib.import_module("ray_tpu_torch.collective")
+    data = np.random.RandomState(SEED + 3).standard_normal(
+        (2, RUNTIME_COLL_ELEMS)).astype(np.float32)
+    members = [rt.remote(num_gpus=0.5)(CollectiveMember).remote()
+               for _ in range(2)]
+    name = col.create_collective_group(members, world_size=2, ranks=[0, 1])
+    try:
+        refs = [rt.put(torch.from_numpy(data[r]).to(DEVICE))
+                for r in range(2)]
+        outs = rt.get([m.run.remote(x) for m, x in zip(members, refs)],
+                      timeout=300)
+        rt.get([m.leave.remote() for m in members], timeout=60)
+    finally:
+        col.destroy_collective_group(name)
+        for m in members:
+            rt.kill(m)
+    for r, out in enumerate(outs):
+        check(np.array_equal(out["allreduce"], data[0] + data[1]),
+              f"rank {r}: allreduce differs from numpy's")
+        check(np.array_equal(out["allgather"], data),
+              f"rank {r}: allgather differs from numpy's")
+        check(np.array_equal(out["broadcast"], data[1]),
+              f"rank {r}: broadcast differs from the source rank's")
+    seconds = [out["s"] for out in outs]
+    print(f"runtime: collective group of 2 actors on the card, "
+          f"{RUNTIME_COLL_ELEMS} fp32 a rank: allreduce, allgather and "
+          f"broadcast equal numpy's, {seconds} s")
+    return {"ranks": 2, "elements": RUNTIME_COLL_ELEMS, "equal_numpy": True,
+            "seconds": seconds}
+
+
+def runtime_burst(rt):
+    """(f) A burst of no-op tasks through the node manager's policy."""
+    noop = rt.remote(num_cpus=0.001)(_noop)
+    rt.get([noop.remote() for _ in range(64)], timeout=300)   # workers up
+    reset_scheduler_launch_counts()
+    t0 = time.perf_counter()
+    rt.get([noop.remote() for _ in range(RUNTIME_BURST)], timeout=600)
+    seconds = time.perf_counter() - t0
+    launches = scheduler_launch_counts()[0]
+    print(f"runtime: {RUNTIME_BURST} no-op tasks in {seconds:.4f} s, "
+          f"{RUNTIME_BURST / seconds:.1f} tasks/s, schedule_classes "
+          f"launches {launches}")
+    return {"tasks": RUNTIME_BURST, "seconds": seconds,
+            "tasks_per_s": RUNTIME_BURST / seconds,
+            "schedule_classes_launches": launches}
+
+
+def phase_runtime(direct, training, tokens):
+    """The port's runtime on the card: ``init()``, the device tier on
+    CUDA tensors, the flagship served and trained from GPU-demand actors,
+    an actor collective group on the card and a burst of tasks."""
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    w = rt.init()
+    init_s = time.perf_counter() - t0
+    try:
+        resources = rt.cluster_resources()
+        check(resources.get("GPU") == torch.cuda.device_count(),
+              f"cluster GPU {resources.get('GPU')}, cards "
+              f"{torch.cuda.device_count()}")
+        policy = type(w.node_group._policy._inner).__name__
+        print(f"runtime: init {init_s:.3f} s, resources {resources}, "
+              f"policy {policy}")
+        out = {"init_s": init_s, "resources": resources, "policy": policy}
+        out["device_tier"] = runtime_device_tier(rt, w)
+        out["replica"] = runtime_replica(rt, w, direct)
+        torch.cuda.empty_cache()
+        out["trainer"] = runtime_trainer(rt, training, tokens)
+        torch.cuda.empty_cache()
+        out["collective"] = runtime_collective(rt)
+        out["burst"] = runtime_burst(rt)
+    finally:
+        rt.shutdown()
+    return out
 
 
 def main() -> int:
@@ -1883,7 +2331,7 @@ def main() -> int:
     bwd = phase_backward_kernels()
     wide_head = phase_head_dims()
     memory = phase_memory()
-    serving, serving_launches = phase_serving()
+    serving, serving_launches, direct = phase_serving()
     torch.cuda.empty_cache()
     training, tokens = phase_training()
     torch.cuda.empty_cache()
@@ -1899,6 +2347,10 @@ def main() -> int:
                                  "flash_bwd_dkv")}
     torch.cuda.empty_cache()
     scheduler = phase_scheduler()
+    torch.cuda.empty_cache()
+    runtime = phase_runtime(direct, training, tokens)
+    replica_launches = runtime["replica"]["launches"]
+    trainer_launches = runtime["trainer"]["launches"]
 
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"training": training, "card": card}))
@@ -1907,6 +2359,7 @@ def main() -> int:
     print(json.dumps({"vit": vit_result, "card": card}))
     print(json.dumps({"wide_head_dims": wide_head, "card": card}))
     print(json.dumps({"scheduler": scheduler, "card": card}))
+    print(json.dumps({"runtime": runtime, "card": card}))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{
@@ -1915,11 +2368,16 @@ def main() -> int:
         "replaces": f"{src}:83", "replaces_fn": f"{src}::_flash_fwd_kernel",
         "launches": (serving_launches + train_launches["flash_fwd"]
                      + mesh_launches["flash_fwd"]
-                     + pipe_launches["flash_fwd"]),
+                     + pipe_launches["flash_fwd"]
+                     + replica_launches["flash_fwd"]
+                     + trainer_launches["flash_fwd"]),
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["flash_fwd"],
                              "mesh_training": mesh_launches["flash_fwd"],
-                             "pipeline": pipe_launches["flash_fwd"]},
+                             "pipeline": pipe_launches["flash_fwd"],
+                             "runtime_replica": replica_launches["flash_fwd"],
+                             "runtime_trainer":
+                             trainer_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -1938,13 +2396,17 @@ def main() -> int:
             "replaces": f"{src}:{line}", "replaces_fn": f"{src}::{fn}",
             "launches": (train_launches[f"flash_bwd_{key}"]
                          + mesh_launches[f"flash_bwd_{key}"]
-                         + pipe_launches[f"flash_bwd_{key}"]),
+                         + pipe_launches[f"flash_bwd_{key}"]
+                         + trainer_launches[f"flash_bwd_{key}"]),
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"],
                                  "mesh_training":
                                  mesh_launches[f"flash_bwd_{key}"],
                                  "pipeline":
-                                 pipe_launches[f"flash_bwd_{key}"]},
+                                 pipe_launches[f"flash_bwd_{key}"],
+                                 "runtime_replica": 0,
+                                 "runtime_trainer":
+                                 trainer_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],
@@ -1970,7 +2432,14 @@ def main() -> int:
             "source": "ray_tpu_torch/csrc/scheduler.cu",
             "replaces": replaces,
             "replaces_fn": f"{replaces.split(':')[0]}::{fn} (jitted jnp)",
-            "launches": scheduler["launches"][key],
+            "launches": (scheduler["launches"][key]
+                         + (runtime["burst"]["schedule_classes_launches"]
+                            if key == "schedule_classes" else 0)),
+            "launches_by_path": {
+                "scheduler": scheduler["launches"][key],
+                "runtime_burst": (
+                    runtime["burst"]["schedule_classes_launches"]
+                    if key == "schedule_classes" else 0)},
             "max_abs_err": 0.0, "exact": True,
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": "bytes",

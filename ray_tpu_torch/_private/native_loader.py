@@ -9,6 +9,11 @@ stale binary never loads.
 
 Unlike ``ray_tpu/_private/native_loader.py``, a failed build raises, with
 the compiler's stderr: a kernel that does not build has no fallback.
+
+The CPU scheduler's C++ (``ray_tpu_torch/native/scheduler.cc``, the native
+hybrid policy) is no kernel: ``scheduler_lib`` builds it with ``g++`` into
+the same cache and returns None when that fails, as the reference does, so
+that the policy falls back to the pure-Python hybrid.
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -121,3 +128,54 @@ def load_library(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(_library_path(name))
         return lib
+
+
+_host_libs: dict[str, Optional[ctypes.CDLL]] = {}
+
+
+def load_host_library(name: str, sources) -> Optional[ctypes.CDLL]:
+    """Compile (if needed) and load ``native/<sources>`` for the host CPU
+    with ``g++``; None when the compiler is missing or the build fails."""
+    with _lock:
+        if name in _host_libs:
+            return _host_libs[name]
+        try:
+            srcs = [os.path.join(NATIVE_DIR, s) for s in sources]
+            h = hashlib.sha1()
+            for path in srcs:
+                with open(path, "rb") as f:
+                    h.update(f.read())
+            so = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+            if not os.path.exists(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                subprocess.run(["g++", "-O3", "-march=native", "-std=c++17",
+                                "-shared", "-fPIC", *srcs, "-o", tmp],
+                               check=True, capture_output=True,
+                               timeout=_BUILD_TIMEOUT_S)
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(so)
+        except (OSError, subprocess.SubprocessError):
+            lib = None
+        _host_libs[name] = lib
+        return lib
+
+
+def scheduler_lib() -> Optional[ctypes.CDLL]:
+    """The native hybrid scheduler (``native/scheduler.cc``), typed."""
+    lib = load_host_library("rtpt_scheduler", ["scheduler.cc"])
+    if lib is not None and not getattr(lib, "_rtpu_typed", False):
+        f32p = ctypes.POINTER(ctypes.c_float)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.rtpu_hybrid_schedule.argtypes = [
+            f32p, f32p, u8p, ctypes.c_int, ctypes.c_int, f32p, i32p,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+            ctypes.c_uint64, i32p, u8p]
+        lib.rtpu_hybrid_schedule.restype = None
+        lib.rtpu_hybrid_schedule_classes.argtypes = [
+            f32p, f32p, u8p, ctypes.c_int, ctypes.c_int, f32p, i32p, i32p,
+            ctypes.c_int, ctypes.c_float, i32p]
+        lib.rtpu_hybrid_schedule_classes.restype = None
+        lib._rtpu_typed = True
+    return lib

@@ -26,8 +26,6 @@ import random
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
-import torch
-
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.ids import NodeID
@@ -399,11 +397,12 @@ class CompositeSchedulingPolicy(ISchedulingPolicy):
 
 
 def _cpu_hybrid_policy() -> ISchedulingPolicy:
-    """The CPU hybrid policy. The reference takes its native C++ build
-    when that builds; the port has no copy of it yet, so this is the
-    pure-Python hybrid, the reference's own choice when the native
-    library does not import."""
-    return create_policy("hybrid")
+    """Native C++ hybrid when the library builds, else pure Python."""
+    try:
+        from ray_tpu_torch._private.scheduler import native_policy  # noqa: F401
+        return create_policy("hybrid_native")
+    except ImportError:
+        return create_policy("hybrid")
 
 
 def _tpu_scheduler_enabled(device) -> bool:
@@ -413,7 +412,7 @@ def _tpu_scheduler_enabled(device) -> bool:
     not on a CPU host; '1'/'true' and '0'/'false' force either."""
     v = str(get_config().use_tpu_scheduler).strip().lower()
     if v in ("auto", ""):
-        return torch.device(device).type == "cuda"
+        return getattr(device, "type", str(device).split(":")[0]) == "cuda"
     return v in ("1", "true", "yes", "on")
 
 

@@ -25,7 +25,7 @@ _RUN = r"""
 import json, torch
 import chip_smoke as c
 name, count, *_ = c.phase_device()
-serving, _ = c.phase_serving()
+serving = c.phase_serving()[0]
 torch.cuda.empty_cache()
 training, _ = c.phase_training()
 print("AB_RESULT " + json.dumps({

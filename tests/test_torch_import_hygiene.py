@@ -3,7 +3,10 @@ imports JAX or anything of ``ray_tpu``, and its entry points run on the
 card unless the caller asks for the CPU."""
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -155,3 +158,93 @@ def test_vit_entry_point_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_vit_params(cfg)
+
+
+RUNTIME_MODULES = (
+    "__init__", "actor", "remote_function", "exceptions", "runtime_context",
+    "util/metrics", "util/placement_group", "util/scheduling_strategies",
+    "collective/collective", "_private/actor_checkpoint", "_private/backoff",
+    "_private/chaos", "_private/config", "_private/connection_hub",
+    "_private/device_object", "_private/durable", "_private/events",
+    "_private/export", "_private/gcs", "_private/ids",
+    "_private/log_monitor", "_private/node_manager", "_private/object_ref",
+    "_private/object_store", "_private/object_transfer", "_private/pip_env",
+    "_private/placement_group_manager", "_private/profiling",
+    "_private/ref_counting", "_private/rpc", "_private/serialization",
+    "_private/stats", "_private/task_manager", "_private/task_spec",
+    "_private/wire_stats", "_private/worker", "_private/worker_core",
+    "_private/worker_entry", "_private/worker_pool",
+    "_private/worker_process", "_private/scheduler/native_policy")
+
+
+def test_sources_cover_the_runtime():
+    """The scan above reaches every module of the runtime core."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in RUNTIME_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module", ["ray_tpu_torch",
+                                    "ray_tpu_torch._private.worker_process"])
+def test_runtime_imports_load_neither_torch_nor_jax(module):
+    """A process worker imports ``worker_process`` (and so the package):
+    in a fresh interpreter that loads no torch and no JAX."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_init_needs_a_card_or_an_explicit_gpu_count():
+    import ray_tpu_torch
+    if torch.cuda.is_available():
+        w = ray_tpu_torch.init(num_cpus=1, max_process_workers=1)
+        try:
+            assert w.cluster_resources()["GPU"] == torch.cuda.device_count()
+        finally:
+            ray_tpu_torch.shutdown()
+    else:
+        with pytest.raises(RuntimeError, match="num_gpus=0"):
+            ray_tpu_torch.init(num_cpus=1, max_process_workers=1)
+        assert not ray_tpu_torch.is_initialized()
+    for num_gpus in (0, 2):
+        w = ray_tpu_torch.init(num_cpus=1, num_gpus=num_gpus,
+                               max_process_workers=1)
+        try:
+            res = ray_tpu_torch.cluster_resources()
+            assert res.get("GPU", 0.0) == num_gpus and "TPU" not in res
+        finally:
+            ray_tpu_torch.shutdown()
+
+
+@pytest.mark.parametrize("depth", ["short", "long"])
+def test_session_files_live_under_tmpdir(tmp_path, depth):
+    """Every file a session writes on the host (session dir, the
+    ``rtpt_current`` pointer) lands under ``TMPDIR``, and none in
+    ``/tmp``. A ``TMPDIR`` too long for a unix socket path still starts
+    process workers (the hub listens in the abstract namespace)."""
+    tmpdir = tmp_path / ("d" * 90 if depth == "long" else "t")
+    tmpdir.mkdir()
+    code = ("import ray_tpu_torch as rt\n"
+            "w = rt.init(num_cpus=1, num_gpus=0, max_process_workers=1)\n"
+            "f = rt.remote(lambda x: x + 1)\n"
+            "print(w.session, rt.get(f.remote(1)))\n"
+            "rt.shutdown()\n")
+    env = dict(os.environ, TMPDIR=str(tmpdir))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    session, value = out.stdout.split()[-2:]
+    assert value == "2"
+    ours = tmpdir / f"rtpt_{session}"
+    assert (ours / "session_token").is_file()
+    link = tmpdir / f"rtpt_current_{os.getuid()}"
+    assert os.path.realpath(link) == str(ours)
+    assert not os.path.exists(f"/tmp/rtpt_{session}")
+    tmp_link = f"/tmp/rtpt_current_{os.getuid()}"
+    assert not (os.path.lexists(tmp_link)
+                and os.path.realpath(tmp_link) == str(ours))

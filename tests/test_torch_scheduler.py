@@ -438,7 +438,12 @@ def test_registry_default_policy_and_device():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
     composite = pol.default_policy(device="cpu")
-    assert isinstance(composite._inner, pol.HybridSchedulingPolicy)
+    # the CPU hybrid is the native C++ scan when it builds, as in the
+    # reference, and the pure-Python hybrid otherwise
+    native = importlib.import_module(
+        "ray_tpu_torch._private.native_loader").scheduler_lib()
+    assert composite._inner.name == ("hybrid_native" if native is not None
+                                     else "hybrid")
     cfg = importlib.import_module("ray_tpu_torch._private.config")
     old = cfg.get_config()._values["use_tpu_scheduler"]
     try:
