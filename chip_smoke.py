@@ -113,12 +113,37 @@ Phases, each fatal on failure:
    come back. (e) Two ``num_gpus=0.5`` actors form a collective group and
    run allreduce, allgather and broadcast of seeded CUDA tensors, equal
    to numpy's. (f) A burst of 4,096 ``num_cpus=0.001`` no-op tasks:
-   tasks/s and the ``schedule_classes`` launches it took.
+   tasks/s and the scheduler kernels' launches it took. (g) A nested
+   call: a ``num_cpus=1`` task in a process worker, which sees no card,
+   ``get``s a driver ``put`` of a CUDA tensor (its host copy) and
+   ``put``s its sum; the driver's ``get`` of that ref equals the sum on
+   the card.
+14. Serve: a fresh ``init()``; the flagship deployed with
+   ``ray_actor_options={"num_gpus": 1}`` through ``serve.run`` (the
+   replica builds it from seed 0 on the card and warms one forward).
+   (a) Phase 6's 2 batches of 4 token lists through the handle: answers,
+   the first batch's last-position logits and its logits sum bit for bit
+   equal to phase 6's, 8 forward launches a batch. (b) The 8 sequences
+   as 8 concurrent calls of a ``@serve.batch(max_batch_size=4)`` method:
+   greedy tokens equal to phase 6's, logits heads within phase 6's bound,
+   the gathered batch sizes and the ``ray_tpu_serve_batch_size`` gauge.
+   (c) ``serve.start(http=True, proxy_location="driver")``: the 2 batches
+   POSTed as JSON to the deployment's route, answers bit for bit equal.
+   ``serve.delete`` must give the card's memory back. (d) Two
+   ``num_gpus=0.5`` replicas of the card behind the router take 8
+   concurrent calls: the calls each took, both right. (e)
+   ``serve.shutdown()``: the card's memory back to its baseline, and no
+   ``rtpt_`` segment of this run (named after its session or after the
+   pid of the driver or of one of its process workers) left in
+   ``/dev/shm`` after ``shutdown()``. Latencies beside phase 6's, Serve's
+   overhead a batch, replica construction time, peak memory and the
+   scheduler kernels' launches of the phase.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
-``{"vit": ...}``, ``{"runtime": ...}`` and ``{"kernels": [...]}`` lines,
+``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}`` and
+``{"kernels": [...]}`` lines,
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -131,6 +156,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -152,6 +178,7 @@ spol = importlib.import_module("ray_tpu_torch._private.scheduler.policy")
 sres = importlib.import_module("ray_tpu_torch._private.scheduler.resources")
 swl = importlib.import_module("ray_tpu_torch._private.scheduler.workload")
 sids = importlib.import_module("ray_tpu_torch._private.ids")
+serve = importlib.import_module("ray_tpu_torch.serve")
 
 # Tolerances, fixed before the first run on the card.
 FP32_O_TOL = 2e-5     # abs and rel: the JAX package's forward bound; TF32 off
@@ -1412,6 +1439,13 @@ def reset_scheduler_launch_counts():
     tp.launches = pk.launches_pack = pk.launches_pack_batch = 0
 
 
+SCHEDULER_KERNELS = ("schedule_classes", "pg_pack", "pg_pack_batch")
+
+
+def scheduler_launches_by_name():
+    return dict(zip(SCHEDULER_KERNELS, scheduler_launch_counts()))
+
+
 def launch_floor_ms(iters=200):
     """The least a launch costs here: the host round trip of one empty
     kernel launch and a synchronize (median), and the device time of one
@@ -1774,8 +1808,7 @@ def phase_scheduler():
             "pg_pack_batch": valid.numel() / (times["pg_pack_batch"][0]
                                               * 1e-3)},
         "launch_round_trip_ms": trip_ms, "empty_launch_ms": empty_ms,
-        "launches": dict(zip(("schedule_classes", "pg_pack",
-                              "pg_pack_batch"), counts_run)),
+        "launches": dict(zip(SCHEDULER_KERNELS, counts_run)),
         "kernels": rows}
     print(f"scheduler: {tasks_s:.1f} tasks/s with the host expansion "
           f"({n_assigned} placed, best of {len(expand_s)}: "
@@ -1892,9 +1925,10 @@ def phase_serving():
         "answers_head": answers[:2],
         "profile": profile,
     }
-    # What the runtime phase's Replica actor is held to: the answers, the
-    # first batch's last-position logits and the sum of its logits.
-    direct = {"answers": answers, "latency_s": latencies,
+    # What the runtime and serve phases are held to: the answers to these
+    # requests, the first batch's last-position logits and the sum of its
+    # logits.
+    direct = {"requests": requests, "answers": answers, "latency_s": latencies,
               "last_logits": first_logits[:, -1].float().cpu(),
               "logits_sum": first_logits.sum(dtype=torch.float64).item(),
               "logits_gap_bf16_fp32": gap}
@@ -1910,6 +1944,7 @@ RUNTIME_BURST = 4096                  # no-op tasks of num_cpus=0.001
 RUNTIME_FREE_SLACK = 16 << 20         # bytes a killed actor may leave
 RUNTIME_PINGS = 50                    # empty actor calls timed
 RUNTIME_FREE_WAIT_S = 30.0
+RUNTIME_NESTED_ELEMS = 1 << 22         # int64 elements a nested get reads
 
 
 def _spill_probe(x):
@@ -1923,6 +1958,19 @@ def _spill_probe(x):
 
 def _noop():
     return None
+
+
+def _nested_sum(refs):
+    """A CPU task, run in a process worker: ``get`` of the driver's ref
+    that it was handed inside a list (a nested call to the driver, which
+    answers with the tensor's host copy), and a ``put`` of its sum, owned
+    by this worker."""
+    import ray_tpu_torch as nested_rt
+    import torch as worker_torch
+    x = nested_rt.get(refs[0], timeout=300)
+    return {"type": type(x).__name__, "device": str(x.device),
+            "cuda_available": worker_torch.cuda.is_available(),
+            "sum": nested_rt.put(x.sum())}
 
 
 class ReplicaActor:
@@ -2030,11 +2078,10 @@ def card_bytes_without_workspaces():
     return torch.cuda.memory_allocated()
 
 
-def kill_and_check_freed(rt, actor, baseline, what):
-    """Kill ``actor`` and wait until the card's allocated bytes fall back
-    to ``baseline``: the actor's tensors must go with it."""
+def wait_freed(baseline, what):
+    """Wait until the card's allocated bytes fall back to ``baseline``
+    (within RUNTIME_FREE_SLACK): what went away must take its tensors."""
     import gc
-    rt.kill(actor)
     deadline = time.perf_counter() + RUNTIME_FREE_WAIT_S
     while True:
         gc.collect()
@@ -2043,8 +2090,14 @@ def kill_and_check_freed(rt, actor, baseline, what):
             break
         time.sleep(0.1)
     check(left <= RUNTIME_FREE_SLACK,
-          f"{what}: {left} bytes still allocated after kill")
+          f"{what}: {left} bytes still allocated after it went away")
     return left
+
+
+def kill_and_check_freed(rt, actor, baseline, what):
+    """Kill ``actor``; the card's memory must come back."""
+    rt.kill(actor)
+    return wait_freed(baseline, what)
 
 
 def runtime_device_tier(rt, w):
@@ -2115,6 +2168,64 @@ def runtime_device_tier(rt, w):
             "d2h_copy_s": d2h_s, "worker_saw": got}
 
 
+def runtime_nested(rt):
+    """(g) A nested call from a process worker that sees no card: it gets
+    a driver ``put`` of a CUDA tensor (the host copy) and ``put``s its
+    sum; the driver's ``get`` of that ref equals the sum on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    t = torch.randint(-1000, 1000, (RUNTIME_NESTED_ELEMS,), generator=gen,
+                      device=DEVICE)
+    want = t.sum()
+    ref = rt.put(t)
+    task = rt.remote(num_cpus=1)(_nested_sum)
+    t0 = time.perf_counter()
+    got = rt.get(task.remote([ref]), timeout=300)
+    total = rt.get(got["sum"], timeout=60)
+    seconds = time.perf_counter() - t0
+    check(got["type"] == "Tensor" and got["device"] == "cpu",
+          f"the nested get gave {got['type']} on {got['device']}")
+    check(got["cuda_available"] is False, "the process worker sees a card")
+    check(isinstance(total, torch.Tensor) and total.item() == want.item(),
+          f"nested sum {total}, {want.item()} on the card")
+    check(rt.get(ref) is t, "the card-side tensor is no longer primary")
+    print(f"runtime: nested get of a {t.nbytes}-byte CUDA tensor from a "
+          f"process worker and a put of its sum: {total.item()} (the "
+          f"card's {want.item()}) in {seconds:.4f} s")
+    del t, ref
+    return {"elements": RUNTIME_NESTED_ELEMS, "sum": total.item(),
+            "sum_on_card": want.item(), "seconds": seconds,
+            "worker_saw": {k: got[k] for k in ("type", "device",
+                                               "cuda_available")}}
+
+
+def check_answers(answers, direct_answers, gap, what, bit_equal):
+    """Every answer well formed, the greedy tokens equal to the direct
+    run's, the logits heads within LOGITS_GAP_FACTOR x the bf16/fp32 gap
+    (or bit for bit equal, where ``bit_equal``). Returns the heads' worst
+    difference."""
+    cfg = flagship_config()
+    check(len(answers) == len(direct_answers),
+          f"{what}: {len(answers)} answers")
+    check(all(0 <= a["next_token"] < cfg.vocab_size
+              and all(math.isfinite(x) for x in a["logits_head"])
+              for a in answers), f"{what}: malformed answer")
+    head_err = max(abs(x - y) for a, b in zip(answers, direct_answers)
+                   for x, y in zip(a["logits_head"], b["logits_head"]))
+    tokens_equal = sum(a["next_token"] == b["next_token"]
+                       for a, b in zip(answers, direct_answers))
+    if bit_equal:
+        check(answers == direct_answers,
+              f"{what}: answers differ from the direct run's (heads off "
+              f"by {head_err}, {tokens_equal}/{len(answers)} tokens equal)")
+    check(tokens_equal == len(answers),
+          f"{what}: {tokens_equal}/{len(answers)} greedy tokens equal to "
+          f"the direct run's")
+    bound = LOGITS_GAP_FACTOR * gap
+    check(head_err <= bound, f"{what}: logits heads off the direct run's "
+          f"by {head_err}, over {bound}")
+    return head_err
+
+
 def runtime_replica(rt, w, direct):
     """(c) The serving phase's 8 requests through a Replica actor, each
     batch a ``put`` ref that the actor, on a thread of this process,
@@ -2129,9 +2240,7 @@ def runtime_replica(rt, w, direct):
         rt.get(actor.ready.remote(), timeout=60)
         pings.append(time.perf_counter() - t0)
     ping_s = float(np.median(pings))
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    requests = torch.randint(0, cfg.vocab_size, (N_REQUESTS, SEQ),
-                             generator=gen, device=DEVICE)
+    requests = direct["requests"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spilled_before = w.device_store.stats()["num_spilled_to_host"]
@@ -2153,22 +2262,14 @@ def runtime_replica(rt, w, direct):
     spilled = w.device_store.stats()["num_spilled_to_host"] - spilled_before
     check(spilled == 0, f"{spilled} host copies of the actor's batches")
     answers = [a for r in replies for a in r["answers"]]
-    check(len(answers) == N_REQUESTS, f"{len(answers)} answers")
-    check(all(0 <= a["next_token"] < cfg.vocab_size
-              and all(math.isfinite(x) for x in a["logits_head"])
-              for a in answers), "malformed answer")
     err, gap = rt.get(actor.plain_gap.remote(rt.put(requests[:BATCH])),
                       timeout=600)
     check(gap > 0 and err <= LOGITS_GAP_FACTOR * gap,
           f"actor logits off the plain path by {err}, over "
           f"{LOGITS_GAP_FACTOR} x the bf16/fp32 gap {gap}")
-    head_err = max(abs(x - y) for a, b in zip(answers, direct["answers"])
-                   for x, y in zip(a["logits_head"], b["logits_head"]))
-    bound = LOGITS_GAP_FACTOR * direct["logits_gap_bf16_fp32"]
-    check(head_err <= bound, f"actor logits heads off the direct run's by "
-          f"{head_err}, over {bound}")
-    same_tokens = sum(a["next_token"] == b["next_token"]
-                      for a, b in zip(answers, direct["answers"]))
+    head_err = check_answers(answers, direct["answers"],
+                             direct["logits_gap_bf16_fp32"], "Replica actor",
+                             False)
     record = rt.get(actor.first_logits_record.remote(), timeout=600)
     bit_equal = (answers == direct["answers"]
                  and torch.equal(record["last_logits"],
@@ -2180,9 +2281,8 @@ def runtime_replica(rt, w, direct):
           f"{direct['latency_s']} s); an empty actor call {ping_s:.6f} s "
           f"(median of {RUNTIME_PINGS}); launches {launches}; |actor - plain "
           f"bf16| {err:.4g} (gap {gap:.4g}); greedy tokens equal to the "
-          f"direct run's {same_tokens}/{N_REQUESTS}; bit for bit equal to "
+          f"direct run's; bit for bit equal to "
           f"the direct run: {bit_equal}; peak {peak_bytes} bytes")
-    del requests
     left = kill_and_check_freed(rt, actor, baseline, "Replica actor")
     return {"batch_latency_s": latencies, "forward_in_actor_s": forward_s,
             "direct_batch_latency_s": direct["latency_s"],
@@ -2192,7 +2292,7 @@ def runtime_replica(rt, w, direct):
                          "flash_bwd_dkv": launches[2]},
             "logits_err": err, "logits_gap_bf16_fp32": gap,
             "head_err_vs_direct": head_err,
-            "next_tokens_equal_direct": same_tokens,
+            "next_tokens_equal_direct": N_REQUESTS,
             "bit_equal_direct": bit_equal, "peak_mem_bytes": peak_bytes,
             "left_after_kill_bytes": left}
 
@@ -2284,13 +2384,14 @@ def runtime_burst(rt):
     t0 = time.perf_counter()
     rt.get([noop.remote() for _ in range(RUNTIME_BURST)], timeout=600)
     seconds = time.perf_counter() - t0
-    launches = scheduler_launch_counts()[0]
+    launches = scheduler_launches_by_name()
     print(f"runtime: {RUNTIME_BURST} no-op tasks in {seconds:.4f} s, "
-          f"{RUNTIME_BURST / seconds:.1f} tasks/s, schedule_classes "
-          f"launches {launches}")
+          f"{RUNTIME_BURST / seconds:.1f} tasks/s, scheduler launches "
+          f"{launches}")
     return {"tasks": RUNTIME_BURST, "seconds": seconds,
             "tasks_per_s": RUNTIME_BURST / seconds,
-            "schedule_classes_launches": launches}
+            "schedule_classes_launches": launches["schedule_classes"],
+            "scheduler_launches": launches}
 
 
 def phase_runtime(direct, training, tokens):
@@ -2311,6 +2412,7 @@ def phase_runtime(direct, training, tokens):
               f"policy {policy}")
         out = {"init_s": init_s, "resources": resources, "policy": policy}
         out["device_tier"] = runtime_device_tier(rt, w)
+        out["nested"] = runtime_nested(rt)
         out["replica"] = runtime_replica(rt, w, direct)
         torch.cuda.empty_cache()
         out["trainer"] = runtime_trainer(rt, training, tokens)
@@ -2319,6 +2421,271 @@ def phase_runtime(direct, training, tokens):
         out["burst"] = runtime_burst(rt)
     finally:
         rt.shutdown()
+    return out
+
+
+# -- Serve ------------------------------------------------------------------
+
+SERVE_ROUTED_CALLS = 8                 # concurrent calls over 2 replicas
+
+
+class FlagshipDeployment:
+    """The serving phase's Replica as a Serve deployment: the flagship from
+    the seed on the card (through the runtime phase's ReplicaActor), warmed
+    once at construction. ``__call__`` answers a batch of token lists as
+    ``Replica.__call__`` does; ``one`` takes one token list and is gathered
+    by ``@serve.batch`` into batches of up to 4."""
+
+    def __init__(self):
+        import uuid
+        t0 = time.perf_counter()
+        self.model = ReplicaActor()
+        torch.cuda.synchronize()
+        self.construction_s = time.perf_counter() - t0
+        self.tag = uuid.uuid4().hex
+        self.batch_sizes = []
+
+    def _tokens(self, token_lists):
+        return torch.tensor(token_lists, dtype=torch.long, device=DEVICE)
+
+    def __call__(self, token_lists):
+        return self.model.answer(self._tokens(token_lists))["answers"]
+
+    def tagged(self, token_lists):
+        """``__call__``'s answers and which replica gave them."""
+        return {"replica": self.tag, "answers": self(token_lists)}
+
+    @serve.batch(max_batch_size=BATCH)
+    async def one(self, token_lists):
+        self.batch_sizes.append(len(token_lists))
+        return self.model.replica(self._tokens(token_lists))
+
+    def record(self):
+        """The construction time, the gathered batch sizes, and the first
+        batch's last-position logits and logits sum."""
+        return {"construction_s": self.construction_s,
+                "batch_sizes": list(self.batch_sizes),
+                **self.model.first_logits_record()}
+
+
+def serve_batch_gauge():
+    """``ray_tpu_serve_batch_size`` as the runtime's metrics page shows it:
+    the realised requests per batched dispatch."""
+    metrics = importlib.import_module("ray_tpu_torch.util.metrics")
+    for line in metrics.prometheus_text().splitlines():
+        if line.startswith("ray_tpu_serve_batch_size"):
+            return float(line.split()[-1])
+    raise SmokeFailure("no ray_tpu_serve_batch_size gauge")
+
+
+def segment_owners(w, pids):
+    """Add to ``pids`` the driver's pid and those of the process workers
+    that ``w``'s nodes run now; shared-memory segments of this run are
+    named after its session or after one of these pids."""
+    pids.add(os.getpid())
+    group = w.node_group
+    with group._lock:
+        raylets = list(group._raylets.values())
+    for raylet in raylets:
+        with raylet.worker_pool._lock:
+            workers = list(raylet.worker_pool._all.values())
+        pids.update(worker.proc.pid for worker in workers
+                    if getattr(worker, "proc", None) is not None)
+    return pids
+
+
+def segments_left(session, pids):
+    """This run's ``rtpt_`` segments still in ``/dev/shm``: those of its
+    session (``rtpt_<session>*``) and those its processes own
+    (``rtpt_own_<pid>_*``). Other runs' segments are not looked at."""
+    prefixes = (f"rtpt_{session}",
+                *(f"rtpt_own_{pid}_" for pid in sorted(pids)))
+    return sorted(f for f in os.listdir("/dev/shm") if f.startswith(prefixes))
+
+
+def post_json(url, payload):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"POST {url}: HTTP {resp.status}")
+        return json.loads(resp.read())
+
+
+def phase_serve(direct, card):
+    """Serve on the card: the flagship deployed on a ``num_gpus=1``
+    replica and answered through a handle, through ``@serve.batch`` and
+    through the HTTP ingress; then on two ``num_gpus=0.5`` replicas of one
+    card behind the router; then torn down."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import serve_stats
+    cfg = flagship_config()
+    requests = direct["requests"].tolist()
+    batches = [requests[i * BATCH:(i + 1) * BATCH]
+               for i in range(N_REQUESTS // BATCH)]
+    gap = direct["logits_gap_bf16_fp32"]
+    n_batches = len(batches)
+    w = rt.init()
+    session, pids = w.session, set()
+    try:
+        for thread in list(tp._device_rt_threads.values()):
+            thread.join(timeout=60)
+        baseline = card_bytes_without_workspaces()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_scheduler_launch_counts()
+        out = {"card": card}
+
+        # (a) the handle path, on one num_gpus=1 replica
+        deployment = serve.deployment(
+            name="flagship", ray_actor_options={"num_gpus": 1})(
+                FlagshipDeployment)
+        t0 = time.perf_counter()
+        handle = serve.run(deployment.bind(), timeout=600)
+        run_s = time.perf_counter() - t0
+        latencies, answers = [], []
+        for i, batch in enumerate(batches):
+            counts = launch_counts()
+            t0 = time.perf_counter()
+            answers += rt.get(handle.remote(batch), timeout=600)
+            latencies.append(time.perf_counter() - t0)
+            per_batch = tuple(a - b for a, b in zip(launch_counts(), counts))
+            check(per_batch == (cfg.n_layers, 0, 0),
+                  f"handle batch {i}: (fwd, dQ, dK/dV) launches {per_batch}, "
+                  f"expected ({cfg.n_layers}, 0, 0)")
+        record = rt.get(handle.record.remote(), timeout=600)
+        check_answers(answers, direct["answers"], gap, "handle", True)
+        check(torch.equal(record["last_logits"], direct["last_logits"])
+              and record["logits_sum"] == direct["logits_sum"],
+              "handle: the first batch's logits differ from the direct "
+              "run's")
+        out["handle"] = {
+            "serve_run_s": run_s,
+            "construction_s": record["construction_s"],
+            "batch_latency_s": latencies,
+            "overhead_s": [a - b for a, b in zip(latencies,
+                                                 direct["latency_s"])],
+            "bit_equal_direct": True}
+
+        # (b) @serve.batch: 8 concurrent single-sequence calls
+        serve_stats.reset()
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        refs = [handle.one.remote(seq) for seq in requests]
+        batched = rt.get(refs, timeout=600)
+        batch_s = time.perf_counter() - t0
+        sizes = rt.get(handle.record.remote(), timeout=600)["batch_sizes"]
+        per_path = tuple(a - b for a, b in zip(launch_counts(), counts))
+        check(sum(sizes) == N_REQUESTS and max(sizes) <= BATCH,
+              f"@serve.batch gathered {sizes}")
+        check(per_path == (cfg.n_layers * len(sizes), 0, 0),
+              f"@serve.batch: (fwd, dQ, dK/dV) launches {per_path} for "
+              f"{len(sizes)} batches")
+        head_err = check_answers(batched, direct["answers"], gap,
+                                 "@serve.batch", False)
+        out["batch"] = {
+            "seconds": batch_s, "batch_sizes": sizes,
+            "gauge_batch_size": serve_batch_gauge(),
+            "router_batches": serve_stats.snapshot()["batches"],
+            "head_err_vs_direct": head_err,
+            "bit_equal_direct": batched == direct["answers"]}
+
+        # (c) the HTTP ingress, hosted by the driver
+        serve.start(http=True, proxy_location="driver")
+        host, port = serve.http_address()
+        url = f"http://{host}:{port}/flagship"
+        http_latencies, http_answers = [], []
+        for i, batch in enumerate(batches):
+            counts = launch_counts()
+            t0 = time.perf_counter()
+            http_answers += post_json(url, batch)
+            http_latencies.append(time.perf_counter() - t0)
+            per_batch = tuple(a - b for a, b in zip(launch_counts(), counts))
+            check(per_batch == (cfg.n_layers, 0, 0),
+                  f"HTTP batch {i}: (fwd, dQ, dK/dV) launches {per_batch}")
+        check_answers(http_answers, direct["answers"], gap, "HTTP", True)
+        out["http"] = {
+            "batch_latency_s": http_latencies,
+            "overhead_s": [a - b for a, b in zip(http_latencies,
+                                                 direct["latency_s"])],
+            "request_bytes": [len(json.dumps(b)) for b in batches],
+            "bit_equal_direct": True}
+        serve.delete("flagship")
+        del handle
+        out["left_after_delete_bytes"] = wait_freed(
+            baseline, "the num_gpus=1 deployment")
+
+        # (d) two num_gpus=0.5 replicas of the card behind the router
+        pair = serve.deployment(
+            name="flagship_x2", num_replicas=2,
+            ray_actor_options={"num_gpus": 0.5})(FlagshipDeployment)
+        t0 = time.perf_counter()
+        handle2 = serve.run(pair.bind(), timeout=600)
+        run2_s = time.perf_counter() - t0
+        check(serve.status()["flagship_x2"]["live_replicas"] == 2,
+              f"routing: {serve.status()['flagship_x2']}")
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        refs = [handle2.tagged.remote(batches[i % n_batches])
+                for i in range(SERVE_ROUTED_CALLS)]
+        replies = rt.get(refs, timeout=600)
+        routed_s = time.perf_counter() - t0
+        per_path = tuple(a - b for a, b in zip(launch_counts(), counts))
+        check(per_path == (cfg.n_layers * SERVE_ROUTED_CALLS, 0, 0),
+              f"routing: (fwd, dQ, dK/dV) launches {per_path}")
+        taken = {}
+        for reply in replies:
+            taken[reply["replica"]] = taken.get(reply["replica"], 0) + 1
+        check(len(taken) == 2, f"routing: calls per replica {taken}")
+        routed = [reply["answers"] for reply in replies]
+        wanted = [direct["answers"][(i % n_batches) * BATCH:
+                                    (i % n_batches + 1) * BATCH]
+                  for i in range(SERVE_ROUTED_CALLS)]
+        worst = max(check_answers(got, want, gap, f"routed call {i}", False)
+                    for i, (got, want) in enumerate(zip(routed, wanted)))
+        out["routing"] = {
+            "serve_run_s": run2_s, "seconds": routed_s,
+            "calls": SERVE_ROUTED_CALLS,
+            "calls_per_replica": sorted(taken.values()),
+            "head_err_vs_direct": worst,
+            "bit_equal_direct": routed == wanted}
+        del handle2
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        segment_owners(w, pids)
+
+        # (e) teardown
+        serve.shutdown()
+        out["left_after_shutdown_bytes"] = wait_freed(
+            baseline, "serve.shutdown")
+    finally:
+        serve.shutdown()
+        segment_owners(w, pids)
+        rt.shutdown()
+    left = segments_left(session, pids)
+    check(not left, f"shared-memory segments of this run left after "
+          f"shutdown: {left}")
+    out["launches"] = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                               launch_counts()))
+    out["scheduler_launches"] = scheduler_launches_by_name()
+    out["schedule_classes_launches"] = out["scheduler_launches"][
+        "schedule_classes"]
+    out["direct_batch_latency_s"] = direct["latency_s"]
+    h, b, x = out["handle"], out["batch"], out["http"]
+    print(f"serve ({card}): replica construction "
+          f"{h['construction_s']:.3f} s (serve.run {h['serve_run_s']:.3f} s); "
+          f"handle batches {h['batch_latency_s']} s, HTTP batches "
+          f"{x['batch_latency_s']} s, direct {direct['latency_s']} s; "
+          f"overhead a batch: handle {h['overhead_s']} s, HTTP "
+          f"{x['overhead_s']} s; @serve.batch of {N_REQUESTS} calls in "
+          f"{b['seconds']:.4f} s, batches {b['batch_sizes']} (gauge "
+          f"{b['gauge_batch_size']:.3f}), heads within "
+          f"{b['head_err_vs_direct']:.4g}, bit equal "
+          f"{b['bit_equal_direct']}; 2 replicas took "
+          f"{out['routing']['calls_per_replica']} of "
+          f"{SERVE_ROUTED_CALLS} calls in {out['routing']['seconds']:.4f} s; "
+          f"peak {out['peak_mem_bytes']} bytes; launches {out['launches']}; "
+          f"scheduler launches {out['scheduler_launches']}")
     return out
 
 
@@ -2351,6 +2718,11 @@ def main() -> int:
     runtime = phase_runtime(direct, training, tokens)
     replica_launches = runtime["replica"]["launches"]
     trainer_launches = runtime["trainer"]["launches"]
+    torch.cuda.empty_cache()
+    served = phase_serve(direct, card)
+    serve_launches = served["launches"]
+    burst_sched = runtime["burst"]["scheduler_launches"]
+    serve_sched = served["scheduler_launches"]
 
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"training": training, "card": card}))
@@ -2360,6 +2732,7 @@ def main() -> int:
     print(json.dumps({"wide_head_dims": wide_head, "card": card}))
     print(json.dumps({"scheduler": scheduler, "card": card}))
     print(json.dumps({"runtime": runtime, "card": card}))
+    print(json.dumps({"serve": served, "card": card}))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{
@@ -2370,14 +2743,16 @@ def main() -> int:
                      + mesh_launches["flash_fwd"]
                      + pipe_launches["flash_fwd"]
                      + replica_launches["flash_fwd"]
-                     + trainer_launches["flash_fwd"]),
+                     + trainer_launches["flash_fwd"]
+                     + serve_launches["flash_fwd"]),
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["flash_fwd"],
                              "mesh_training": mesh_launches["flash_fwd"],
                              "pipeline": pipe_launches["flash_fwd"],
                              "runtime_replica": replica_launches["flash_fwd"],
                              "runtime_trainer":
-                             trainer_launches["flash_fwd"]},
+                             trainer_launches["flash_fwd"],
+                             "serve": serve_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -2397,7 +2772,8 @@ def main() -> int:
             "launches": (train_launches[f"flash_bwd_{key}"]
                          + mesh_launches[f"flash_bwd_{key}"]
                          + pipe_launches[f"flash_bwd_{key}"]
-                         + trainer_launches[f"flash_bwd_{key}"]),
+                         + trainer_launches[f"flash_bwd_{key}"]
+                         + serve_launches[f"flash_bwd_{key}"]),
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"],
                                  "mesh_training":
@@ -2406,7 +2782,8 @@ def main() -> int:
                                  pipe_launches[f"flash_bwd_{key}"],
                                  "runtime_replica": 0,
                                  "runtime_trainer":
-                                 trainer_launches[f"flash_bwd_{key}"]},
+                                 trainer_launches[f"flash_bwd_{key}"],
+                                 "serve": serve_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],
@@ -2432,14 +2809,12 @@ def main() -> int:
             "source": "ray_tpu_torch/csrc/scheduler.cu",
             "replaces": replaces,
             "replaces_fn": f"{replaces.split(':')[0]}::{fn} (jitted jnp)",
-            "launches": (scheduler["launches"][key]
-                         + (runtime["burst"]["schedule_classes_launches"]
-                            if key == "schedule_classes" else 0)),
+            "launches": (scheduler["launches"][key] + burst_sched[key]
+                         + serve_sched[key]),
             "launches_by_path": {
                 "scheduler": scheduler["launches"][key],
-                "runtime_burst": (
-                    runtime["burst"]["schedule_classes_launches"]
-                    if key == "schedule_classes" else 0)},
+                "runtime_burst": burst_sched[key],
+                "serve": serve_sched[key]},
             "max_abs_err": 0.0, "exact": True,
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": "bytes",

@@ -101,6 +101,28 @@ def install_runtime_metrics() -> None:
         "(source failover / owner re-route), striped (multi-source "
         "range fan-in), failed (typed terminal errors)",
         tag_keys=("state",))
+    serve_rps = m.Gauge(
+        "ray_tpu_serve_rps",
+        "Serve-plane requests/s accepted by this process's routers "
+        "over the last scrape window (docs/serve.md)")
+    serve_queue = m.Gauge(
+        "ray_tpu_serve_queue_depth",
+        "Per-deployment total request queue in the driver's router: "
+        "batch-parked + in-flight + admission waiters; returns to 0 "
+        "when load stops", tag_keys=("deployment",))
+    serve_batch = m.Gauge(
+        "ray_tpu_serve_batch_size",
+        "Realized requests-per-dispatch on the serve batched path "
+        "(cumulative average)")
+    serve_replicas = m.Gauge(
+        "ray_tpu_serve_replicas",
+        "Live replicas per deployment (autoscaler-visible)",
+        tag_keys=("deployment",))
+    serve_first_token = m.Gauge(
+        "ray_tpu_serve_first_token_ms",
+        "Streaming serve requests: mean time from request parse to "
+        "the first item on the wire, over the recent sample window "
+        "(docs/serve.md §Ingress; 0 = no streamed load)")
 
     def collect():
         from ray_tpu_torch._private.worker import try_global_worker
@@ -113,10 +135,12 @@ def install_runtime_metrics() -> None:
         ng_stats = w.node_group.stats()
         # overload plane: cumulative sheds honored, plus the live
         # count of backpressured (deferred) tasks — the latter returns
-        # to zero once the overload clears. (The reference folds
-        # Serve-plane sheds into the same family; Serve is not ported
-        # yet.)
-        tasks.set(ng_stats.get("shed", 0), tags={"state": "shed"})
+        # to zero once the overload clears. Serve-plane sheds fold
+        # into the same family (docs/serve.md §Backpressure).
+        from ray_tpu_torch._private import serve_stats
+        serve_counts = serve_stats.snapshot()
+        tasks.set(ng_stats.get("shed", 0) + serve_counts.get("shed", 0),
+                  tags={"state": "shed"})
         tasks.set(ng_stats.get("deferred", 0),
                   tags={"state": "backpressured"})
         # placement plane (docs/scheduler.md): live count of tasks the
@@ -205,6 +229,22 @@ def install_runtime_metrics() -> None:
                             if dedupe_calls else 0.0)
         for state, count in pulls.items():
             object_pulls.set(count, tags={"state": state})
+        # serve plane (docs/serve.md §Observability): RPS over the
+        # scrape window, live queue depth + replica count per
+        # deployment, realized batch coalescing factor
+        serve_rps.set(serve_stats.rps_sample())
+        serve_batch.set(serve_stats.batch_avg())
+        serve_first_token.set(serve_stats.first_token_ms())
+        serve_queue.clear()      # deleted deployments' series vanish
+        serve_replicas.clear()
+        for controller in serve_stats.controllers():
+            try:
+                for name, qd, nrep in controller.metrics_snapshot():
+                    serve_queue.set(qd, tags={"deployment": name})
+                    serve_replicas.set(nrep, tags={"deployment": name})
+            except Exception:  # noqa: BLE001
+                # controller mid-shutdown: skip its series this scrape
+                pass
 
     m.register_collector(collect)
 

@@ -185,11 +185,29 @@ def test_sources_cover_the_runtime():
     assert not missing, missing
 
 
+SERVE_MODULES = (
+    "_private/nested_client", "_private/serve_stats", "serve/__init__",
+    "serve/_private/__init__", "serve/_private/controller",
+    "serve/_private/http_proxy", "serve/_private/ingress",
+    "serve/_private/replica", "serve/_private/router")
+
+
+def test_sources_cover_serve_and_the_nested_client():
+    """The scan above reaches every module of Serve and the nested
+    client that it stands on."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in SERVE_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+
+
 @pytest.mark.parametrize("module", ["ray_tpu_torch",
-                                    "ray_tpu_torch._private.worker_process"])
+                                    "ray_tpu_torch._private.worker_process",
+                                    "ray_tpu_torch.serve"])
 def test_runtime_imports_load_neither_torch_nor_jax(module):
-    """A process worker imports ``worker_process`` (and so the package):
-    in a fresh interpreter that loads no torch and no JAX."""
+    """A process worker imports ``worker_process`` (and so the package),
+    and a replica in one imports Serve: in a fresh interpreter neither
+    loads torch or JAX."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
             "if m in sys.modules))")
