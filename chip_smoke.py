@@ -138,12 +138,47 @@ Phases, each fatal on failure:
    ``/dev/shm`` after ``shutdown()``. Latencies beside phase 6's, Serve's
    overhead a batch, replica construction time, peak memory and the
    scheduler kernels' launches of the phase.
+15. Train: a fresh ``init()``. (a) The flagship at full width and depth
+   through ``DataParallelTrainer`` with ``ScalingConfig(num_workers=1,
+   use_gpu=True)`` (the worker on a thread of the driver): the seed-0
+   TrainState, 3 steps on phase 7's tokens (passed in
+   ``train_loop_config``), one ``train.report`` a step; after step 2 the
+   whole state (fp32 parameters and AdamW moments, 8.05 GB) through
+   ``save_pytree`` as the reported Checkpoint, which ``report`` copies
+   into the trial dir under this run's temporary directory (its free
+   bytes printed first). Each step's loss and grad norm within
+   MESH_FIRST_LOSS_REL of phase 7's, 8/8/8 launches a step, 3 entries in
+   ``metrics_history``; a second ``fit`` with ``resume_from_checkpoint``
+   runs step 3 again, its loss and grad norm bit for bit the first fit's;
+   the checkpoint's bytes and its save, copy and load seconds. (b) Two
+   ``{"GPU": 0.5}`` workers, both on threads of the driver: each sees its
+   own rank (0 and 1) and world size 2, and the allreduce of its seeded 1M
+   fp32 CUDA vector over the gang's collective group equals numpy's sum.
+   After each fit the card's memory is back to its baseline.
+16. Multi-slice: ViT-B/16 (``vit_b16_config``, 114.6M parameters, bf16
+   compute, dense attention, no kernel) through ``MultiSliceTrainer``
+   with ``{"GPU": 0.5}`` ranks, 3 steps, flat (1 slice of 2 ranks) and
+   hierarchical (2 slices of 1 rank). The user functions are the
+   reference's numpy contract: ``init_fn`` the seed-0 parameters as one
+   flat fp32 vector, ``grad_fn`` the ViT loss gradient on the rank's 32
+   of 64 seeded images (computed on the card, returned as flat fp32
+   numpy), ``apply_fn`` a numpy SGD step whose metric is the synced
+   gradient's norm. Flat, hierarchical and a direct loop of the same
+   functions (``np.mean`` over the two shards' gradients) agree under the
+   reference test's ``assert_allclose``; DCN ``bytes_tx`` is 2 x the
+   gradient's bytes x 3 hierarchical and 0 flat, the
+   ``ray_tpu_dcn_bytes`` gauge equal. Step times and the seconds a rank
+   spends a step in host copies, the gradient, the ``shm`` plane
+   (``hierarchical_allreduce``) and the per-call actor checkpoint;
+   ``/dev/shm``'s free bytes printed first (the collective files go to a
+   temporary directory on disk if it cannot hold them).
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
-``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}`` and
-``{"kernels": [...]}`` lines,
+``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
+``{"train": ...}``, ``{"multislice": ...}`` and ``{"kernels": [...]}``
+lines,
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -160,6 +195,8 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2689,6 +2726,557 @@ def phase_serve(direct, card):
     return out
 
 
+# -- Train and multi-slice ----------------------------------------------------
+
+TRAIN_GANG_STEPS = 3          # phase 15's first fit: steps 1-3
+TRAIN_CKPT_STEP = 2           # the loop checkpoints the state after step 2
+TRAIN_GANG_COLL_ELEMS = 1 << 20
+MS_STEPS = 3                  # steps of each MultiSliceTrainer run
+MS_LR = 0.01                  # the numpy SGD step of phase 16's apply_fn
+MS_WAIT_S = 600.0             # collective, step and recovery deadlines
+TRAIN_RECORD = {}             # what a gang worker measured besides reports
+MS_CLOCK = {}                 # seconds by part, summed over ranks and steps
+MS_CACHE = {}                 # the ViT's layout and images, made once
+MS_LOCK = threading.Lock()
+MS_PARTS = ("host_copies", "gradient", "shm_plane", "actor_checkpoint")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def train_state_tree(state):
+    """A TrainState as a tree of dicts and lists (torch's pytree knows no
+    dataclass): the step, the parameters, AdamW's count and moments."""
+    return {"step": state.step, "params": state.params,
+            "count": state.opt_state.count, "mu": state.opt_state.mu,
+            "nu": state.opt_state.nu}
+
+
+def train_state_from_tree(tree):
+    """``train_state_tree``'s inverse, every tensor on the card."""
+    pytree = importlib.import_module("torch.utils._pytree")
+
+    def card(x):
+        return (torch.from_numpy(x) if isinstance(x, np.ndarray)
+                else x).to(DEVICE)
+    return trn.TrainState(
+        step=int(tree["step"]), params=pytree.tree_map(card, tree["params"]),
+        opt_state=trn.AdamWState(count=int(tree["count"]),
+                                 mu=[card(x) for x in tree["mu"]],
+                                 nu=[card(x) for x in tree["nu"]]))
+
+
+def gang_flagship_loop(config):
+    """Phase 15 (a)'s user loop, run by the gang's one worker on the card:
+    the seed-0 TrainState, or the one its checkpoint holds; steps until
+    TRAIN_GANG_STEPS on the training phase's tokens, one report a step
+    (loss, grad norm, launches, time); after step TRAIN_CKPT_STEP the
+    whole state through ``save_pytree``, reported as a Checkpoint."""
+    train = importlib.import_module("ray_tpu_torch.train")
+    cfg = flagship_config()
+    tx = trn.make_optimizer(total_steps=1000)
+    ckpt = train.get_checkpoint()
+    load_s = None
+    if ckpt is None:
+        state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE)
+    else:
+        t0 = time.perf_counter()
+        state = train_state_from_tree(train.load_pytree(ckpt.path))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    step = trn.make_train_step(cfg, tx)
+    tokens = config["tokens"]
+    while state.step < TRAIN_GANG_STEPS:
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        report = {"step": int(metrics["step"]),
+                  "loss": metrics["loss"].item(),
+                  "grad_norm": metrics["grad_norm"].item(),
+                  "step_s": time.perf_counter() - t0,
+                  "launches": [a - b for a, b in zip(launch_counts(),
+                                                     counts)],
+                  "load_s": load_s, "device": str(tokens.device)}
+        checkpoint = None
+        if state.step == TRAIN_CKPT_STEP:
+            d = tempfile.mkdtemp(prefix="state_", dir=config["scratch"])
+            t0 = time.perf_counter()
+            train.save_pytree(train_state_tree(state), d)
+            report["save_s"] = time.perf_counter() - t0
+            report["ckpt_bytes"] = dir_bytes(d)
+            checkpoint = train.Checkpoint.from_directory(d)
+        t0 = time.perf_counter()
+        train.report(report, checkpoint=checkpoint)
+        if checkpoint is not None:     # report copies it into the trial dir
+            TRAIN_RECORD["report_copy_s"] = time.perf_counter() - t0
+
+
+def gang_collective_loop(config):
+    """Phase 15 (b)'s user loop, run by each of two ``{"GPU": 0.5}``
+    workers: its rank's seeded fp32 vector on the card, allreduced over
+    the gang's collective group; the sum and what the worker saw of its
+    session written to ``config["dir"]`` under its rank."""
+    train = importlib.import_module("ray_tpu_torch.train")
+    col = importlib.import_module("ray_tpu_torch.collective")
+    ctx = train.get_context()
+    rank = ctx.get_rank()
+    x = torch.from_numpy(config["data"][rank]).to(DEVICE)
+    t0 = time.perf_counter()
+    out = col.allreduce(x, ctx.collective_group)
+    seconds = time.perf_counter() - t0
+    np.save(os.path.join(config["dir"], f"sum_{rank}.npy"), out)
+    with open(os.path.join(config["dir"], f"rank_{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": ctx.get_world_size(),
+                   "pid": os.getpid(), "seconds": seconds,
+                   "input_device": str(x.device)}, f)
+    train.report({"rank": rank, "world": ctx.get_world_size()})
+
+
+def train_flagship(training, tokens, scratch, card):
+    """(a) The flagship through a one-worker ``DataParallelTrainer``."""
+    train = importlib.import_module("ray_tpu_torch.train")
+    cfg = flagship_config()
+    n_params = sum(p.numel() for p in trn.param_leaves(
+        tfm.init_params(cfg, seed=SEED, device=DEVICE)))
+    state_bytes = 3 * 4 * n_params           # fp32 params, mu and nu
+    disk = shutil.disk_usage(scratch)
+    print(f"train: storage {scratch}: {disk.free} bytes free of "
+          f"{disk.total}; the state is {state_bytes} bytes, checkpointed "
+          f"once and copied into the trial dir")
+    check(disk.free > 2.1 * state_bytes,
+          f"train: {disk.free} bytes free under {scratch}, the checkpoint "
+          f"and its copy need {2 * state_bytes}")
+    baseline = card_bytes_without_workspaces()
+    config = {"tokens": tokens, "scratch": scratch}
+    storage = os.path.join(scratch, "results")
+    TRAIN_RECORD.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train.DataParallelTrainer(
+        gang_flagship_loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(name="flagship",
+                                   storage_path=storage)).fit()
+    fit_s = time.perf_counter() - t0
+    check(first.error is None, f"train: the fit failed: {first.error!r}")
+    hist = first.metrics_history
+    check(len(hist) == TRAIN_GANG_STEPS,
+          f"train: metrics_history has {len(hist)} entries")
+    for i, m in enumerate(hist):
+        check(m["step"] == i, f"train: report {i} is of step {m['step']}")
+        check(m["device"].startswith(DEVICE),
+              f"train: the worker's tokens are on {m['device']}")
+        check(tuple(m["launches"]) == (cfg.n_layers,) * 3,
+              f"train: step {i}: (fwd, dQ, dK/dV) launches "
+              f"{m['launches']}, expected {cfg.n_layers} each")
+        for name, x, y in (("loss", m["loss"], training["losses"][i]),
+                           ("grad norm", m["grad_norm"],
+                            training["grad_norms"][i])):
+            check(math.isfinite(x) and abs(x - y) <= MESH_FIRST_LOSS_REL
+                  * abs(y), f"train: step {i}: {name} {x}, the training "
+                  f"phase's {y}")
+    saved = hist[TRAIN_CKPT_STEP - 1]
+    check(first.checkpoint is not None
+          and first.checkpoint.path.startswith(storage),
+          f"train: checkpoint {first.checkpoint}")
+    left_first = wait_freed(baseline, "the first fit's gang")
+
+    t0 = time.perf_counter()
+    resumed = train.DataParallelTrainer(
+        gang_flagship_loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(name="flagship_resumed",
+                                   storage_path=storage),
+        resume_from_checkpoint=first.checkpoint).fit()
+    resume_fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(resumed.error is None,
+          f"train: the resumed fit failed: {resumed.error!r}")
+    again = resumed.metrics_history
+    check(len(again) == 1 and again[0]["step"] == TRAIN_GANG_STEPS - 1,
+          f"train: the resumed fit reported {again}")
+    last = hist[-1]
+    check(again[0]["loss"] == last["loss"]
+          and again[0]["grad_norm"] == last["grad_norm"],
+          f"train: resumed step {TRAIN_GANG_STEPS}: loss "
+          f"{again[0]['loss']!r}, grad norm {again[0]['grad_norm']!r}; the "
+          f"first fit's {last['loss']!r}, {last['grad_norm']!r}")
+    check(tuple(again[0]["launches"]) == (cfg.n_layers,) * 3,
+          f"train: resumed step launches {again[0]['launches']}")
+    left = wait_freed(baseline, "the resumed fit's gang")
+    runs = TRAIN_GANG_STEPS + 1
+    check(launches == (cfg.n_layers * runs,) * 3,
+          f"train: launches {launches} over {runs} steps")
+    out = {"fit_s": fit_s, "resume_fit_s": resume_fit_s,
+           "step_time_s": [m["step_s"] for m in hist],
+           "direct_step_time_s": training["step_time_s"][:TRAIN_GANG_STEPS],
+           "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "resumed_step_s": again[0]["step_s"],
+           "resumed_bit_equal": True,
+           "ckpt_bytes": saved["ckpt_bytes"], "state_bytes": state_bytes,
+           "save_s": saved["save_s"],
+           "report_copy_s": TRAIN_RECORD.get("report_copy_s"),
+           "load_s": again[0]["load_s"], "disk_free_bytes": disk.free,
+           "left_after_fits_bytes": [left_first, left],
+           "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), launches))}
+    print(f"train ({card}): gang losses {out['losses']} (direct "
+          f"{training['losses'][:TRAIN_GANG_STEPS]}); step times in the "
+          f"gang {out['step_time_s']} s (direct {out['direct_step_time_s']}"
+          f" s); fits {fit_s:.2f} / {resume_fit_s:.2f} s; checkpoint "
+          f"{saved['ckpt_bytes']} bytes, save {saved['save_s']:.2f} s, "
+          f"report copy {out['report_copy_s']} s, load "
+          f"{out['load_s']:.2f} s; resumed step {TRAIN_GANG_STEPS} bit for "
+          f"bit (loss {last['loss']!r}); launches {launches}")
+    return out
+
+
+def train_gang_collective(scratch, card):
+    """(b) Two ``{"GPU": 0.5}`` workers, both on threads of the driver."""
+    train = importlib.import_module("ray_tpu_torch.train")
+    data = np.random.RandomState(SEED + 5).standard_normal(
+        (2, TRAIN_GANG_COLL_ELEMS)).astype(np.float32)
+    out_dir = tempfile.mkdtemp(prefix="gang_", dir=scratch)
+    baseline = card_bytes_without_workspaces()
+    t0 = time.perf_counter()
+    res = train.DataParallelTrainer(
+        gang_collective_loop,
+        train_loop_config={"data": data, "dir": out_dir},
+        scaling_config=train.ScalingConfig(
+            num_workers=2, resources_per_worker={"GPU": 0.5}),
+        run_config=train.RunConfig(
+            name="gang", storage_path=os.path.join(scratch, "results"))).fit()
+    fit_s = time.perf_counter() - t0
+    check(res.error is None, f"gang: the fit failed: {res.error!r}")
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith(".json"))
+    check(files == ["rank_0.json", "rank_1.json"],
+          f"gang: the workers wrote {files}, not ranks 0 and 1 once each")
+    seen = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
+            seen.append(json.load(f))
+        total = np.load(os.path.join(out_dir, f"sum_{r}.npy"))
+        check(np.array_equal(total, data[0] + data[1]),
+              f"gang: rank {r}'s allreduce differs from numpy's")
+    check([s["rank"] for s in seen] == [0, 1]
+          and all(s["world"] == 2 for s in seen),
+          f"gang: sessions {seen}")
+    check(all(s["pid"] == os.getpid() for s in seen),
+          f"gang: the workers ran in {[s['pid'] for s in seen]}, not in "
+          f"the driver {os.getpid()}")
+    left = wait_freed(baseline, "the 2-worker gang")
+    print(f"train ({card}): gang of 2 GPU 0.5 workers in the driver's "
+          f"process, "
+          f"ranks {[s['rank'] for s in seen]}, allreduce of "
+          f"{TRAIN_GANG_COLL_ELEMS} fp32 equal to numpy's in "
+          f"{[s['seconds'] for s in seen]} s; fit {fit_s:.2f} s; {left} "
+          f"bytes left")
+    return {"ranks": [s["rank"] for s in seen], "world": 2,
+            "elements": TRAIN_GANG_COLL_ELEMS, "equal_numpy": True,
+            "allreduce_s": [s["seconds"] for s in seen], "fit_s": fit_s,
+            "left_after_bytes": left}
+
+
+def phase_train(training, tokens, card):
+    """Phase 15: Train on the card (``ray_tpu_torch.train``)."""
+    import ray_tpu_torch as rt
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    rt.init()
+    try:
+        for thread in list(tp._device_rt_threads.values()):
+            thread.join(timeout=60)
+        reset_scheduler_launch_counts()
+        out = {"card": card, "flagship": train_flagship(
+            training, tokens, scratch, card)}
+        torch.cuda.empty_cache()
+        out["gang"] = train_gang_collective(scratch, card)
+        out["scheduler_launches"] = scheduler_launches_by_name()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
+def _ms_clock(part, seconds):
+    with MS_LOCK:
+        MS_CLOCK[part] = MS_CLOCK.get(part, 0.0) + seconds
+
+
+def _ms_layout(cfg):
+    """The ViT's parameter tree with meta tensors for leaves (shapes
+    only), made once from a seed-0 init on the card."""
+    key = ("layout", repr(cfg))
+    with MS_LOCK:
+        layout = MS_CACHE.get(key)
+    if layout is None:
+        pytree = importlib.import_module("torch.utils._pytree")
+        params = vit.init_vit_params(cfg, seed=SEED, device=DEVICE)
+        layout = pytree.tree_map(
+            lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+            params)
+        with MS_LOCK:
+            MS_CACHE[key] = layout
+    return layout
+
+
+def _ms_unflatten(flat, like):
+    """A tree shaped like ``like`` whose leaves are views of ``flat``, in
+    ``param_leaves`` order."""
+    pieces = iter(torch.split(flat, [p.numel()
+                                      for p in trn.param_leaves(like)]))
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(pieces).view(node.shape)
+    return build(like)
+
+
+def ms_images(cfg):
+    """VIT_IMAGES images and labels from RandomState(0), as phase 11's."""
+    key = ("images", repr(cfg))
+    with MS_LOCK:
+        batch = MS_CACHE.get(key)
+    if batch is None:
+        rng = np.random.RandomState(0)
+        batch = (rng.rand(VIT_IMAGES, cfg.image_size, cfg.image_size,
+                          cfg.channels).astype(np.float32),
+                 rng.randint(0, cfg.num_classes, VIT_IMAGES))
+        with MS_LOCK:
+            MS_CACHE[key] = batch
+    return batch
+
+
+def ms_init_fn():
+    """``init_fn``: the seed-0 ViT-B/16 parameters as one flat fp32
+    vector, in ``param_leaves`` order."""
+    params = vit.init_vit_params(vit_b16_config(), seed=SEED, device=DEVICE)
+    return torch.cat([p.reshape(-1).float()
+                      for p in trn.param_leaves(params)]).cpu().numpy()
+
+
+def ms_grad_fn(state, global_rank, world, step):
+    """``grad_fn``: the flat state onto the card as the ViT's parameters,
+    the gradient of ``vit_loss_fn`` on this rank's VIT_IMAGES / world
+    images, back as flat fp32 numpy. Times its host copies and its
+    compute into MS_CLOCK."""
+    del step
+    cfg = vit_b16_config()
+    images, labels = ms_images(cfg)
+    per = VIT_IMAGES // world
+    rows = slice(global_rank * per, (global_rank + 1) * per)
+    t0 = time.perf_counter()
+    flat = torch.from_numpy(state).to(DEVICE)
+    batch = {"images": torch.from_numpy(images[rows]).to(DEVICE),
+             "labels": torch.from_numpy(labels[rows]).to(DEVICE)}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flat.requires_grad_(True)
+    params = _ms_unflatten(flat, _ms_layout(cfg))
+    loss = vit.vit_loss_fn(params, batch, cfg)
+    (grad,) = torch.autograd.grad(loss, flat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = grad.float().cpu().numpy()
+    t3 = time.perf_counter()
+    _ms_clock("host_copies", (t1 - t0) + (t3 - t2))
+    _ms_clock("gradient", t2 - t1)
+    return out
+
+
+def ms_apply_fn(state, synced):
+    """``apply_fn``: a numpy SGD step; the metric is the synced
+    gradient's norm."""
+    return state - MS_LR * synced, float(np.linalg.norm(synced))
+
+
+def _timed(fn, part):
+    """``fn`` that adds its seconds to MS_CLOCK[part]."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ms_clock(part, time.perf_counter() - t0)
+    return wrapper
+
+
+def dcn_gauge():
+    metrics = importlib.import_module("ray_tpu_torch.util.metrics")
+    for line in metrics.prometheus_text().splitlines():
+        if line.startswith("ray_tpu_dcn_bytes"):
+            return float(line.split()[-1])
+    return None
+
+
+def multislice_run(num_slices, ranks_per_slice):
+    """One MultiSliceTrainer run of MS_STEPS steps on ``{"GPU": 0.5}``
+    ranks: its history, final snapshots, DCN counters, step times and
+    the seconds of each part of a step, summed over ranks."""
+    mst = importlib.import_module("ray_tpu_torch.train.multislice")
+    ms_pkg = importlib.import_module("ray_tpu_torch.multislice")
+    ackpt = importlib.import_module("ray_tpu_torch._private.actor_checkpoint")
+    baseline = card_bytes_without_workspaces()
+    plain = (ms_pkg.hierarchical_allreduce, ackpt.save_generation)
+    ms_pkg.hierarchical_allreduce = _timed(plain[0], "shm_plane")
+    ackpt.save_generation = _timed(plain[1], "actor_checkpoint")
+    tr = mst.MultiSliceTrainer(
+        ms_init_fn, ms_grad_fn, ms_apply_fn,
+        mst.MultiSliceConfig(
+            num_slices=num_slices, ranks_per_slice=ranks_per_slice,
+            resources_per_worker={"GPU": 0.5},
+            collective_timeout_s=MS_WAIT_S, step_timeout_s=MS_WAIT_S,
+            recover_timeout_s=MS_WAIT_S))
+    try:
+        t0 = time.perf_counter()
+        tr.start()
+        start_s = time.perf_counter() - t0
+        with MS_LOCK:
+            MS_CLOCK.update(dict.fromkeys(MS_PARTS, 0.0))
+        hist, step_s = [], []
+        for _ in range(MS_STEPS):
+            t0 = time.perf_counter()
+            hist += tr.run(1)
+            step_s.append(time.perf_counter() - t0)
+        with MS_LOCK:
+            parts = {k: MS_CLOCK[k] for k in MS_PARTS}
+        snaps = tr.snapshots()
+        stats = tr.dcn_stats()
+        # the gauge trails dcn_stats(): read it until it catches up
+        deadline = time.perf_counter() + 60
+        gauge = dcn_gauge()
+        while (stats["bytes_tx"] and gauge != stats["bytes_tx"]
+               and time.perf_counter() < deadline):
+            time.sleep(0.1)
+            gauge = dcn_gauge()
+    finally:
+        tr.shutdown()
+        ms_pkg.hierarchical_allreduce, ackpt.save_generation = plain
+    left = wait_freed(baseline, f"the {num_slices} x {ranks_per_slice} "
+                      f"MultiSliceTrainer")
+    ranks = num_slices * ranks_per_slice
+    return {"history": hist, "snapshots": snaps, "dcn": stats,
+            "dcn_gauge": gauge, "start_s": start_s, "step_s": step_s,
+            "parts_s_per_rank_step": {k: v / (ranks * MS_STEPS)
+                                      for k, v in parts.items()},
+            "left_after_bytes": left}
+
+
+def phase_multislice(card):
+    """Phase 16: ViT-B/16 through ``MultiSliceTrainer`` on the card, flat
+    (1 slice of 2 ranks) and hierarchical (2 slices of 1 rank), against a
+    direct loop of the same functions."""
+    import ray_tpu_torch as rt
+    col = importlib.import_module("ray_tpu_torch.collective.collective")
+    cfg = vit_b16_config()
+    n_params = sum(p.numel() for p in trn.param_leaves(_ms_layout(cfg)))
+    grad_bytes = 4 * n_params
+    shm = shutil.disk_usage("/dev/shm")
+    need = 8 * grad_bytes
+    coll_base, scratch = col._BASE, None
+    print(f"multislice: /dev/shm {shm.free} bytes free of {shm.total}; "
+          f"a rank file is {grad_bytes} bytes, up to {need} at once")
+    if shm.free < need:
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_coll_")
+        col._BASE = scratch
+        print(f"multislice: /dev/shm is too small, collective files under "
+              f"{scratch} (RAY_TPU_COLL_DIR)")
+
+    # the direct loop: both shards' gradients, np.mean, apply
+    state = ms_init_fn()
+    direct = []
+    for step in range(1, MS_STEPS + 1):
+        grads = [ms_grad_fn(state, r, 2, step) for r in range(2)]
+        state, metric = ms_apply_fn(state, np.mean(np.stack(grads), axis=0))
+        direct.append((step, metric))
+    direct_state = state
+
+    launches_before = launch_counts()
+    rt.init()
+    try:
+        for thread in list(tp._device_rt_threads.values()):
+            thread.join(timeout=60)
+        reset_scheduler_launch_counts()
+        flat = multislice_run(1, 2)
+        torch.cuda.empty_cache()
+        hier = multislice_run(2, 1)
+        sched = scheduler_launches_by_name()
+    finally:
+        rt.shutdown()
+        col._BASE = coll_base
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+    launched = tuple(a - b for a, b in zip(launch_counts(), launches_before))
+    check(launched == (0, 0, 0), f"multislice: attention kernels launched "
+          f"{launched}; the ViT attends densely")
+
+    for name, run in (("flat", flat), ("hierarchical", hier)):
+        check([s for s, _ in run["history"]] == list(range(1, MS_STEPS + 1)),
+              f"multislice {name}: history {run['history']}")
+        check(all(s == MS_STEPS for s, _ in run["snapshots"]),
+              f"multislice {name}: ranks at steps "
+              f"{[s for s, _ in run['snapshots']]}")
+    # the reference test's comparison (tests/test_multislice.py:135-141)
+    for (_, fm), (_, hm), (_, dm) in zip(flat["history"], hier["history"],
+                                         direct):
+        np.testing.assert_allclose(hm, fm)
+        np.testing.assert_allclose(fm, dm)
+    for (_, fstate), (_, hstate) in zip(flat["snapshots"], hier["snapshots"]):
+        np.testing.assert_allclose(fstate, hstate)
+        np.testing.assert_allclose(fstate, direct_state)
+    state_diff = max(float(np.max(np.abs(f - h)))
+                     for (_, f), (_, h) in zip(flat["snapshots"],
+                                               hier["snapshots"]))
+    metric_diff = max(abs(f - h) for (_, f), (_, h) in zip(
+        flat["history"], hier["history"]))
+    direct_diff = max(float(np.max(np.abs(s - direct_state)))
+                      for _, s in flat["snapshots"] + hier["snapshots"])
+    check(flat["dcn"]["bytes_tx"] == 0 and flat["dcn"]["ops"] == 0,
+          f"multislice flat: DCN counters {flat['dcn']}")
+    want = 2 * grad_bytes * MS_STEPS
+    check(hier["dcn"]["bytes_tx"] == want
+          and hier["dcn"]["ops"] == 2 * MS_STEPS,
+          f"multislice hierarchical: DCN bytes_tx {hier['dcn']['bytes_tx']}"
+          f", ops {hier['dcn']['ops']}; expected {want}, {2 * MS_STEPS}")
+    check(hier["dcn_gauge"] == want,
+          f"multislice: ray_tpu_dcn_bytes {hier['dcn_gauge']}, expected "
+          f"{want}")
+    out = {"card": card, "params": n_params, "grad_bytes": grad_bytes,
+           "images": VIT_IMAGES, "steps": MS_STEPS, "lr": MS_LR,
+           "shm_free_bytes": shm.free,
+           "collective_dir": "/dev/shm" if scratch is None else "disk",
+           "direct_history": direct,
+           "max_abs_state_diff_flat_hier": state_diff,
+           "max_abs_metric_diff_flat_hier": metric_diff,
+           "max_abs_state_diff_vs_direct": direct_diff,
+           "scheduler_launches": sched, "kernel_launches": list(launched)}
+    for name, run in (("flat", flat), ("hierarchical", hier)):
+        step = sum(run["step_s"][1:]) / (MS_STEPS - 1)
+        parts = run["parts_s_per_rank_step"]
+        out[name] = {"history": run["history"], "dcn": run["dcn"],
+                     "dcn_gauge": run["dcn_gauge"], "start_s": run["start_s"],
+                     "step_s": run["step_s"], "parts_s": parts,
+                     "share_of_step": {k: v / step for k, v in parts.items()},
+                     "left_after_bytes": run["left_after_bytes"]}
+        print(f"multislice {name} ({card}): steps {run['step_s']} s; per "
+              f"rank and step: " + ", ".join(
+                  f"{k} {v:.4f} s" for k, v in parts.items())
+              + f"; DCN bytes_tx {run['dcn']['bytes_tx']}, ops "
+              f"{run['dcn']['ops']}, gauge {run['dcn_gauge']}")
+    print(f"multislice ({card}): flat and hierarchical agree, largest "
+          f"|d| state "
+          f"{state_diff:.4g}, metric {metric_diff:.4g}; against the direct "
+          f"loop {direct_diff:.4g}; grad norms {[m for _, m in direct]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2721,8 +3309,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = phase_serve(direct, card)
     serve_launches = served["launches"]
+    # Phases 15-16 hand functions to gang workers and slice ranks, which
+    # unpickle them by module name: run them from the module
+    # ``chip_smoke``, so that those functions and the phase share one
+    # module's globals (``__main__`` would be pickled by value).
+    this = importlib.import_module("chip_smoke")
+    torch.cuda.empty_cache()
+    trained = this.phase_train(training, tokens, card)
+    gang_launches = trained["flagship"]["launches"]
+    torch.cuda.empty_cache()
+    multislice = this.phase_multislice(card)
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
+    train_sched = trained["scheduler_launches"]
+    multislice_sched = multislice["scheduler_launches"]
 
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"training": training, "card": card}))
@@ -2733,6 +3333,8 @@ def main() -> int:
     print(json.dumps({"scheduler": scheduler, "card": card}))
     print(json.dumps({"runtime": runtime, "card": card}))
     print(json.dumps({"serve": served, "card": card}))
+    print(json.dumps({"train": trained, "card": card}))
+    print(json.dumps({"multislice": multislice, "card": card}))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{
@@ -2744,7 +3346,8 @@ def main() -> int:
                      + pipe_launches["flash_fwd"]
                      + replica_launches["flash_fwd"]
                      + trainer_launches["flash_fwd"]
-                     + serve_launches["flash_fwd"]),
+                     + serve_launches["flash_fwd"]
+                     + gang_launches["flash_fwd"]),
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["flash_fwd"],
                              "mesh_training": mesh_launches["flash_fwd"],
@@ -2752,7 +3355,8 @@ def main() -> int:
                              "runtime_replica": replica_launches["flash_fwd"],
                              "runtime_trainer":
                              trainer_launches["flash_fwd"],
-                             "serve": serve_launches["flash_fwd"]},
+                             "serve": serve_launches["flash_fwd"],
+                             "train": gang_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -2773,7 +3377,8 @@ def main() -> int:
                          + mesh_launches[f"flash_bwd_{key}"]
                          + pipe_launches[f"flash_bwd_{key}"]
                          + trainer_launches[f"flash_bwd_{key}"]
-                         + serve_launches[f"flash_bwd_{key}"]),
+                         + serve_launches[f"flash_bwd_{key}"]
+                         + gang_launches[f"flash_bwd_{key}"]),
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"],
                                  "mesh_training":
@@ -2783,7 +3388,8 @@ def main() -> int:
                                  "runtime_replica": 0,
                                  "runtime_trainer":
                                  trainer_launches[f"flash_bwd_{key}"],
-                                 "serve": serve_launches[f"flash_bwd_{key}"]},
+                                 "serve": serve_launches[f"flash_bwd_{key}"],
+                                 "train": gang_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],
@@ -2810,11 +3416,13 @@ def main() -> int:
             "replaces": replaces,
             "replaces_fn": f"{replaces.split(':')[0]}::{fn} (jitted jnp)",
             "launches": (scheduler["launches"][key] + burst_sched[key]
-                         + serve_sched[key]),
+                         + serve_sched[key] + train_sched[key]
+                         + multislice_sched[key]),
             "launches_by_path": {
                 "scheduler": scheduler["launches"][key],
                 "runtime_burst": burst_sched[key],
-                "serve": serve_sched[key]},
+                "serve": serve_sched[key], "train": train_sched[key],
+                "multislice": multislice_sched[key]},
             "max_abs_err": 0.0, "exact": True,
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": "bytes",

@@ -141,8 +141,8 @@ def resolve_for_dispatch(manager: "PipEnvManager", pip_spec, resources,
     error (no retry)."""
     if substrate_for(resources or {}) == "in_process":
         fail(ValueError(
-            "pip runtime envs cannot demand TPU: TPU work runs "
-            "in-process in the host that owns the chips"))
+            "pip runtime envs cannot demand GPU: GPU work runs "
+            "in-process in the driver, which owns the cards"))
         return ("failed", None, None)
     status, key, detail = manager.poll(pip_spec, park_item=park_item)
     if status == "building":

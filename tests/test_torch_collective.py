@@ -192,9 +192,23 @@ def test_gang_member_death_aborts_restarts_and_fences():
         info = w.gcs.get_gang_info(name)
         assert info.state == "ALIVE" and info.epoch == 1
 
+        # Submit the SURVIVOR first and wait (deadline 30 s) until it is
+        # inside the allreduce (its rank file landed) before the doomed
+        # rank runs: a survivor call still queued at the death would be
+        # replayed after the restart as a half-gang collective (the
+        # queued-call semantics), which is not this scenario; under load
+        # its dispatch can trail the doomed rank's.
+        ep1 = os.path.join(col.group_root(name), "ep_00000001")
+        r1 = survivor.do_allreduce.remote([2.0])
+        deadline = time.monotonic() + 30
+        while not any(os.path.exists(os.path.join(ep1, gen, "rank_1.npy"))
+                      for gen in (os.listdir(ep1) if os.path.isdir(ep1)
+                                  else ()) if gen.startswith("ar_")):
+            assert time.monotonic() < deadline, (
+                "survivor never entered the allreduce")
+            time.sleep(0.01)
         t0 = time.monotonic()
         r0 = doomed.do_allreduce.remote([1.0])
-        r1 = survivor.do_allreduce.remote([2.0])
         # rank 0 dies at the rank-file save (chaos kill): its own call
         # fails with a system error...
         with pytest.raises(Exception) as exc0:

@@ -201,12 +201,31 @@ def test_sources_cover_serve_and_the_nested_client():
     assert not missing, missing
 
 
+TRAIN_MODULES = (
+    "train/__init__", "train/_session", "train/checkpoint", "train/ingest",
+    "train/multislice", "train/torch", "train/trainer",
+    "multislice/__init__", "multislice/dcn", "multislice/hierarchical",
+    "multislice/slice_set")
+
+
+def test_sources_cover_train_and_multislice():
+    """The scan above reaches every module of the Train core and the
+    multi-slice plane."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in TRAIN_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+
+
 @pytest.mark.parametrize("module", ["ray_tpu_torch",
                                     "ray_tpu_torch._private.worker_process",
-                                    "ray_tpu_torch.serve"])
+                                    "ray_tpu_torch.serve",
+                                    "ray_tpu_torch.train",
+                                    "ray_tpu_torch.multislice"])
 def test_runtime_imports_load_neither_torch_nor_jax(module):
     """A process worker imports ``worker_process`` (and so the package),
-    and a replica in one imports Serve: in a fresh interpreter neither
+    and a replica in one imports Serve, a gang worker Train and a slice
+    rank the multi-slice plane: in a fresh interpreter none of them
     loads torch or JAX."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
