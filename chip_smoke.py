@@ -172,13 +172,42 @@ Phases, each fatal on failure:
    (``hierarchical_allreduce``) and the per-call actor checkpoint;
    ``/dev/shm``'s free bytes printed first (the collective files go to a
    temporary directory on disk if it cannot hold them).
+17. Cluster: the flagship at full width and depth served on a head that
+   owns the card (``Cluster(head_num_cpus=4, num_gpus=1)``, the GCS in
+   its own process under ``gcs_mode="process"``) with two remote raylet
+   processes of 2 CPUs that see no card. ``df`` of ``TMPDIR`` and
+   ``/dev/shm`` and whether pyarrow and pandas import come first. (a) 8
+   CPUs and 1 GPU in ``cluster_resources()``; a task pinned to each remote
+   node runs under that raylet with ``CUDA_VISIBLE_DEVICES`` empty; a
+   remote node with a GPU is refused; spawn-to-registration and first-task
+   times. (b) A seeded 64 MB int64 CUDA tensor ``put`` on the head and
+   summed on node 1, and a seeded 64 MB int64 array made on node 2 and
+   summed on the card by a ``num_gpus=1`` task: both sums exact, seconds,
+   GB/s and the pull counters' bytes. (c) A ``num_gpus=1`` Replica actor
+   answers phase 6's two batches, each cut on a remote node from phase
+   6's requests (the card's generator stream cannot be drawn on a node
+   without a card), the refs passed straight in: 8 forward launches a
+   batch, answers bit for bit phase 6's. (d) 64 tasks of 0.1 s spread over
+   the remote nodes, node 2's raylet killed after 16: all 64 right, node
+   2's only copy of a 16 MB object rebuilt by lineage, the GCS's death
+   notice, 2 CPUs fewer, and a batch sent during the recovery bit for bit.
+   (e) The GCS killed and restarted on its port from its persisted state:
+   node 1 reports again, the named replica is found, a task pinned to
+   node 1 runs, a batch bit for bit. (f) The client server started with
+   ``--num-gpus 1``; a thin ``rtpu://`` client in another interpreter runs
+   a task on node 1, a ``num_gpus=1`` flash forward on the card in the
+   client server (B1 x S2048 x N16 x H128 bf16, causal, seeded) whose O
+   and LSE sums equal this process's bit for bit, and a detached counter
+   found again after a reconnect. (g) Teardown: every process exited, the
+   card's memory back, no segment of the run in ``/dev/shm`` and nothing
+   of it in ``/tmp``.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
 ``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
-``{"train": ...}``, ``{"multislice": ...}`` and ``{"kernels": [...]}``
-lines,
+``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}`` and
+``{"kernels": [...]}`` lines,
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3277,6 +3306,727 @@ def phase_multislice(card):
     return out
 
 
+# -- multi-node -------------------------------------------------------------
+
+CLUSTER_HEAD_CPUS = 4
+CLUSTER_REMOTE_CPUS = 2
+CLUSTER_XFER_ELEMS = 8 << 20          # int64: 64 MB each way
+CLUSTER_LOST_ELEMS = 2 << 20          # int64: 16 MB whose only copy dies
+CLUSTER_BURST = 64                    # CPU tasks of CLUSTER_BURST_S each
+CLUSTER_BURST_S = 0.1
+CLUSTER_KILL_AFTER = 16               # burst results in before the kill
+CLUSTER_PINGS = 20                    # empty client tasks timed
+CLUSTER_WAIT_S = 120.0
+CLIENT_ATTN = (1, 2048, 16, 128)      # B, S, N, H of the client's forward
+
+
+class _Spread:
+    """The spread policy's strategy: the composite policy routes
+    ``kind == "SPREAD"`` to round robin over the feasible nodes."""
+
+    kind = "SPREAD"
+
+
+def _where():
+    """Which process runs this task (its parent is the raylet, or the
+    driver for the head's workers), and the card it sees."""
+    import os
+    return os.getppid(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def _import_torch(hold_s):
+    """Load torch in a remote worker (what unpickling a tensor does
+    first), then hold the worker so that its sibling takes the other
+    call; the seconds of the import."""
+    import time as _time
+    t0 = _time.perf_counter()
+    import torch  # noqa: F401
+    seconds = _time.perf_counter() - t0
+    _time.sleep(hold_s)
+    return seconds
+
+
+def _tensor_sum(x):
+    """A CPU task on a remote node: what its argument arrived as and its
+    exact sum."""
+    return {"type": type(x).__name__, "device": str(x.device),
+            "sum": int(x.sum())}
+
+
+def _make_array(n, seed):
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, 1 << 20, size=n,
+                                                dtype=np.int64)
+
+
+def _card_sum(a, device):
+    """A GPU task on the head: the array moved to the card and summed
+    there, and the seconds of that move and sum."""
+    import time as _time
+    import torch as _torch
+    t0 = _time.perf_counter()
+    total = int(_torch.from_numpy(a).to(device).sum())
+    return total, _time.perf_counter() - t0
+
+
+def _cut_batch(requests, i, batch):
+    """A CPU task on a remote node: batch ``i`` of the serving phase's
+    requests, as a tensor of this node's store."""
+    return requests[i * batch:(i + 1) * batch].clone()
+
+
+def _burst_task(i, seconds):
+    import os
+    import time as _time
+    _time.sleep(seconds)
+    return i * i, os.getppid()
+
+
+def _client_flash(shape, seed, device):
+    """The port's flash forward (the kernel on a CUDA tensor) on seeded
+    bf16 q, k, v: the output's and the LSE's float64 sums, the process
+    that ran it and the forward kernel's launches in that call."""
+    import os
+    import importlib as _il
+    import torch as _torch
+    fa_mod = _il.import_module("ray_tpu_torch.ops.flash_attention")
+    gen = _torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (_torch.randn(shape, generator=gen, device=device,
+                            dtype=_torch.bfloat16) for _ in range(3))
+    before = fa_mod.launches
+    out, lse = fa_mod._on_device(fa_mod.flash_attention_plain,
+                                 fa_mod.flash_attention_cuda, q, k, v, True,
+                                 None)
+    return {"out_sum": out.sum(dtype=_torch.float64).item(),
+            "lse_sum": lse.sum(dtype=_torch.float64).item(),
+            "launches": fa_mod.launches - before, "pid": os.getpid()}
+
+
+class ClusterReplica(ReplicaActor):
+    """The runtime phase's Replica actor, taking batches that arrive from
+    other nodes as host tensors."""
+
+    def answer_host(self, batch):
+        return self.answer(batch.to(DEVICE))
+
+
+# A thin client of the client server, run in its own interpreter: argv is
+# the rtpu:// address, remote node 1's id, the flash shape and seed, and
+# the device. It prints one JSON line.
+CLUSTER_CLIENT = r'''
+import json, statistics, sys, time
+import ray_tpu_torch as rt
+from ray_tpu_torch.util.scheduling_strategies import (
+    NodeAffinitySchedulingStrategy as On)
+
+def where():
+    import os
+    return os.getppid(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+def noop():
+    return None
+
+class Counter:
+    def __init__(self):
+        self.n = 0
+    def incr(self):
+        self.n += 1
+        return self.n
+
+addr, node1, shape, seed, device = (sys.argv[1], sys.argv[2],
+                                    json.loads(sys.argv[3]),
+                                    int(sys.argv[4]), sys.argv[5])
+flash = __import__("chip_smoke")._client_flash
+out = {}
+rt.init(address=addr)
+out["on_node1"] = rt.get(rt.remote(where).options(
+    scheduling_strategy=On(node1, soft=False)).remote(), timeout=300)
+out["flash"] = rt.get(rt.remote(num_gpus=1)(flash).remote(
+    tuple(shape), seed, device), timeout=600)
+task = rt.remote(noop)
+rt.get(task.remote(), timeout=300)
+rounds = []
+for _ in range(int(sys.argv[6])):
+    t0 = time.perf_counter()
+    rt.get(task.remote(), timeout=60)
+    rounds.append(time.perf_counter() - t0)
+out["empty_task_s"] = statistics.median(rounds)
+rt.remote(Counter).options(name="p17_counter", lifetime="detached",
+                           num_cpus=1).remote()
+h = rt.get_actor("p17_counter")
+out["counter_a"] = [rt.get(h.incr.remote(), timeout=300) for _ in range(2)]
+rt.shutdown()
+rt.init(address=addr)
+h = rt.get_actor("p17_counter")
+out["counter_b"] = rt.get(h.incr.remote(), timeout=300)
+rt.kill(h)
+rt.shutdown()
+print(json.dumps(out))
+'''
+
+
+def _wait_until(cond, what, timeout=CLUSTER_WAIT_S, interval=0.05):
+    deadline = time.perf_counter() + timeout
+    while True:
+        value = cond()
+        if value:
+            return value
+        check(time.perf_counter() < deadline, f"cluster: timed out waiting "
+              f"for {what}")
+        time.sleep(interval)
+
+
+def _children(pids):
+    """Pids of the live processes whose parent is one of ``pids``."""
+    out = set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid in pids:
+            out.add(int(entry))
+    return out
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode()[:200]
+    except OSError:
+        return "?"
+
+
+def _df(path):
+    st = os.statvfs(path)
+    return {"path": path, "free_bytes": st.f_bavail * st.f_frsize,
+            "total_bytes": st.f_blocks * st.f_frsize}
+
+
+def _data_stack():
+    """Whether pyarrow and pandas import here, each in a fresh
+    interpreter: a version or the ImportError."""
+    out = {}
+    for name in ("pyarrow", "pandas"):
+        run = subprocess.run(
+            [sys.executable, "-c", f"import {name}; print({name}.__version__)"],
+            capture_output=True, text=True, timeout=300)
+        out[name] = (run.stdout.strip() if run.returncode == 0 else
+                     (run.stderr.strip().splitlines() or ["?"])[-1])
+    return out
+
+
+def _pulled_bytes(w, nid):
+    """The bytes a remote raylet's transfer plane has pulled, from its
+    latest heartbeat."""
+    report = w.node_stats.get(nid)
+    if report is None:
+        return 0
+    return report[1].get("wire", {}).get("object_transfer", {}).get(
+        "bytes", 0)
+
+
+def cluster_topology(rt, cluster, w):
+    """(a) Two remote raylets that see no card join the head."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as On)
+    nodes, spawn_s = {}, {}
+    for name in ("n1", "n2"):
+        t0 = time.perf_counter()
+        nodes[name] = cluster.add_node(num_cpus=CLUSTER_REMOTE_CPUS,
+                                       remote=True,
+                                       resources={"remote": 100})
+        spawn_s[name] = time.perf_counter() - t0
+    want = CLUSTER_HEAD_CPUS + 2 * CLUSTER_REMOTE_CPUS
+    t0 = time.perf_counter()
+    resources = _wait_until(
+        lambda: (lambda r: r if r.get("CPU") == want and r.get("GPU") == 1
+                 else None)(rt.cluster_resources()),
+        f"{want} CPUs and 1 GPU")
+    visible_s = time.perf_counter() - t0
+    raylet_pid = {name: w.node_group._remote_nodes[nid].proc.pid
+                  for name, nid in nodes.items()}
+    where = rt.remote(_where)
+    first_s, again_s = {}, {}
+    for name, nid in nodes.items():
+        pinned = where.options(scheduling_strategy=On(nid.hex(), soft=False))
+        t0 = time.perf_counter()
+        ppid, visible = rt.get(pinned.remote(), timeout=300)
+        first_s[name] = time.perf_counter() - t0
+        check(ppid == raylet_pid[name] and visible == "",
+              f"cluster: a task pinned to {name} ran under pid {ppid} "
+              f"(raylet {raylet_pid[name]}) seeing CUDA_VISIBLE_DEVICES="
+              f"{visible!r}")
+        t0 = time.perf_counter()
+        rt.get(pinned.remote(), timeout=300)
+        again_s[name] = time.perf_counter() - t0
+    # Each remote worker loads torch before the transfers are timed: the
+    # first tensor a worker unpickles costs that import.
+    warm = rt.remote(_import_torch)
+    import_s = {name: rt.get([warm.options(scheduling_strategy=On(
+        nid.hex(), soft=False)).remote(1.0)
+        for _ in range(CLUSTER_REMOTE_CPUS)], timeout=300)
+        for name, nid in nodes.items()}
+    try:
+        cluster.add_node(num_cpus=1, num_gpus=1, remote=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "cluster: add_node(remote=True, num_gpus=1) did not raise")
+    print(f"cluster: raylets spawned and registered in {spawn_s} s, "
+          f"resources {resources} after {visible_s:.3f} s more; a pinned "
+          f"task's first round trip {first_s} s (a worker's start), the "
+          f"next {again_s} s; torch loaded in the remote workers in "
+          f"{import_s} s; a remote node with a GPU refused")
+    return nodes, raylet_pid, {
+        "spawn_to_registration_s": spawn_s, "resources": resources,
+        "first_task_s": first_s, "next_task_s": again_s,
+        "worker_torch_import_s": import_s,
+        "remote_gpu_node_refused": refused}
+
+
+def cluster_objects(rt, w, nodes):
+    """(b) 64 MB across nodes both ways, summed exactly."""
+    from ray_tpu_torch._private import wire_stats
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as On)
+    nbytes = CLUSTER_XFER_ELEMS * 8
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t = torch.randint(0, 1 << 20, (CLUSTER_XFER_ELEMS,), generator=gen,
+                      device=DEVICE, dtype=torch.int64)
+    card_sum = int(t.sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.cpu()
+    d2h_s = time.perf_counter() - t0
+    copies = []
+    host_copy = w._ensure_host_copy
+
+    def timed_host_copy(oid):
+        t0 = time.perf_counter()
+        out = host_copy(oid)
+        copies.append(time.perf_counter() - t0)
+        return out
+
+    w._ensure_host_copy = w.node_group._ensure_host_copy_cb = timed_host_copy
+    try:
+        before_n1 = _pulled_bytes(w, nodes["n1"])
+        ref = rt.put(t)
+        t0 = time.perf_counter()
+        got = rt.get(rt.remote(_tensor_sum).options(
+            scheduling_strategy=On(nodes["n1"].hex(), soft=False)).remote(
+                ref), timeout=300)
+        out_s = time.perf_counter() - t0
+    finally:
+        w._ensure_host_copy = w.node_group._ensure_host_copy_cb = host_copy
+    check(got == {"type": "Tensor", "device": "cpu", "sum": card_sum},
+          f"cluster: node 1 saw {got}, the card's sum is {card_sum}")
+    pulled_n1 = _wait_until(
+        lambda: (lambda b: b if b - before_n1 >= nbytes else None)(
+            _pulled_bytes(w, nodes["n1"])), "node 1's pull counters") \
+        - before_n1
+    del ref
+
+    arr_ref = rt.remote(_make_array).options(
+        scheduling_strategy=On(nodes["n2"].hex(), soft=False)).remote(
+            CLUSTER_XFER_ELEMS, SEED)
+    rt.wait([arr_ref], num_returns=1, timeout=300)
+    driver_before = wire_stats.snapshot().get("object_transfer", {}).get(
+        "bytes", 0)
+    t0 = time.perf_counter()
+    total, on_card_s = rt.get(rt.remote(num_gpus=1)(_card_sum).remote(
+        arr_ref, DEVICE), timeout=300)
+    in_s = time.perf_counter() - t0
+    pulled_head = wire_stats.snapshot().get("object_transfer", {}).get(
+        "bytes", 0) - driver_before
+    want = int(np.sum(_make_array(CLUSTER_XFER_ELEMS, SEED)))
+    check(total == want, f"cluster: the card's sum of node 2's array is "
+          f"{total}, numpy's {want}")
+    check(pulled_head >= nbytes, f"cluster: the head pulled {pulled_head} "
+          f"bytes of node 2's {nbytes}-byte array")
+    del arr_ref
+    host_copy_s = sum(copies)
+    print(f"cluster: 64 MB head -> node 1 in {out_s:.4f} s "
+          f"({nbytes / out_s / 1e9:.3f} GB/s; the host copy {copies} s, of "
+          f"which a device-to-host copy takes {d2h_s:.4f} s; the rest "
+          f"{out_s - host_copy_s:.4f} s), node 1 pulled {pulled_n1} bytes; "
+          f"node 2 -> head in {in_s:.4f} s ({nbytes / in_s / 1e9:.3f} GB/s, "
+          f"of which the move to the card and its sum {on_card_s:.4f} s), "
+          f"the head pulled {pulled_head} bytes; both sums exact")
+    return {"bytes": nbytes,
+            "head_to_remote": {"s": out_s, "gb_per_s": nbytes / out_s / 1e9,
+                               "host_copy_s": copies, "d2h_copy_s": d2h_s,
+                               "rest_s": out_s - host_copy_s,
+                               "pulled_bytes": pulled_n1},
+            "remote_to_head": {"s": in_s, "gb_per_s": nbytes / in_s / 1e9,
+                               "to_card_and_sum_s": on_card_s,
+                               "pulled_bytes": pulled_head},
+            "sums_exact": True}
+
+
+def cluster_batch(rt, actor, batch_ref, i, direct, what):
+    """One replica batch from a ref made on a remote node: 8 forward
+    launches, answers bit for bit the serving phase's batch ``i``."""
+    cfg = flagship_config()
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    reply = rt.get(actor.answer_host.remote(batch_ref), timeout=600)
+    latency = time.perf_counter() - t0
+    per_batch = tuple(a - b for a, b in zip(launch_counts(), counts))
+    check(per_batch == (cfg.n_layers, 0, 0),
+          f"cluster {what}: (fwd, dQ, dK/dV) launches {per_batch}, "
+          f"expected ({cfg.n_layers}, 0, 0)")
+    check_answers(reply["answers"],
+                  direct["answers"][i * BATCH:(i + 1) * BATCH],
+                  direct["logits_gap_bf16_fp32"], f"cluster {what}", True)
+    return latency, reply["forward_s"]
+
+
+def cluster_serve(rt, nodes, direct):
+    """(c) The flagship on the head answers batches cut on the remote
+    nodes."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as On)
+    actor = rt.remote(num_gpus=1)(ClusterReplica).options(
+        name="p17_replica").remote()
+    rt.get(actor.ready.remote(), timeout=600)
+    requests = direct["requests"]
+    req_ref = rt.put(requests)
+    cut = rt.remote(_cut_batch)
+    batch_refs = [cut.options(scheduling_strategy=On(
+        nodes[f"n{i + 1}"].hex(), soft=False)).remote(req_ref, i, BATCH)
+        for i in range(N_REQUESTS // BATCH)]
+    for i, ref in enumerate(batch_refs):
+        got = rt.get(ref, timeout=300)
+        check(torch.equal(got.to(DEVICE),
+                          requests[i * BATCH:(i + 1) * BATCH]),
+              f"cluster: batch {i} cut on node {i + 1} differs from the "
+              f"serving phase's")
+    latencies, forward_s = [], []
+    for i, ref in enumerate(batch_refs):
+        lat, fwd = cluster_batch(rt, actor, ref, i, direct, f"batch {i}")
+        latencies.append(lat)
+        forward_s.append(fwd)
+    print(f"cluster: the replica's batch latency {latencies} s (the "
+          f"forward {forward_s} s; direct {direct['latency_s']} s), answers "
+          f"bit for bit the serving phase's")
+    return actor, req_ref, batch_refs, {
+        "batch_latency_s": latencies, "forward_in_actor_s": forward_s,
+        "direct_batch_latency_s": direct["latency_s"],
+        "bit_equal_direct": True}
+
+
+def cluster_node_loss(rt, cluster, w, nodes, raylet_pid, actor, batch_refs,
+                      direct, track):
+    """(d) Node 2 killed mid-burst; ``track()`` notes the processes that
+    run before the kill."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as On)
+    cpus_before = rt.cluster_resources()["CPU"]
+    lost = rt.remote(_make_array).options(
+        scheduling_strategy=On(nodes["n2"].hex(), soft=True)).remote(
+            CLUSTER_LOST_ELEMS, SEED + 3)
+    rt.wait([lost], num_returns=1, timeout=300)
+    removed = {}
+    n2 = nodes["n2"]
+
+    def on_node(msg):
+        if msg[0] == "REMOVED":
+            removed.setdefault(msg[1], time.perf_counter())
+
+    w.gcs.publisher.subscribe("NODE", on_node)
+    burst = rt.remote(num_cpus=1, resources={"remote": 1})(_burst_task)
+    t0 = time.perf_counter()
+    refs = [burst.options(scheduling_strategy=_Spread()).remote(
+        i, CLUSTER_BURST_S) for i in range(CLUSTER_BURST)]
+    rt.wait(refs, num_returns=CLUSTER_KILL_AFTER, timeout=300)
+    track()
+    before_kill = sum(1 for r in refs if w.memory_store.contains(r.id()))
+    t_kill = time.perf_counter()
+    cluster.kill_raylet_process(n2)
+    reply_during = rt.get(actor.answer_host.remote(batch_refs[0]),
+                          timeout=600)
+    results = rt.get(refs, timeout=600)
+    burst_s = time.perf_counter() - t0
+    check([v for v, _ in results] == [i * i for i in range(CLUSTER_BURST)],
+          "cluster: a burst result is wrong")
+    placed = {name: sum(1 for _, p in results if p == pid)
+              for name, pid in raylet_pid.items()}
+    check_answers(reply_during["answers"], direct["answers"][:BATCH],
+                  direct["logits_gap_bf16_fp32"],
+                  "cluster batch during recovery", True)
+    _wait_until(lambda: n2 in removed, "the GCS to declare node 2 dead")
+    notice_s = removed[n2] - t_kill
+    _wait_until(lambda: rt.cluster_resources()["CPU"]
+                == cpus_before - CLUSTER_REMOTE_CPUS,
+                "node 2's CPUs to leave the cluster")
+    recon_before = w.task_manager.num_reconstructions
+    t0 = time.perf_counter()
+    value = rt.get(lost, timeout=600)
+    rebuild_s = time.perf_counter() - t0
+    check(np.array_equal(value, _make_array(CLUSTER_LOST_ELEMS, SEED + 3)),
+          "cluster: the rebuilt 16 MB object differs")
+    rebuilt = w.task_manager.num_reconstructions - recon_before
+    check(rebuilt >= 1, "cluster: node 2's object was not rebuilt by lineage")
+    print(f"cluster: node 2 killed after {before_kill} of {CLUSTER_BURST} "
+          f"burst tasks; all {CLUSTER_BURST} right in {burst_s:.3f} s "
+          f"(placed {placed}, the rest retried); the GCS declared it dead "
+          f"{notice_s:.3f} s after the kill; CPUs {cpus_before} -> "
+          f"{rt.cluster_resources()['CPU']}; its 16 MB object rebuilt in "
+          f"{rebuild_s:.3f} s ({rebuilt} reconstruction); a batch sent "
+          f"during the recovery bit for bit")
+    return {"done_before_kill": before_kill, "burst_s": burst_s,
+            "placed": placed, "kill_to_death_notice_s": notice_s,
+            "cpus": [cpus_before, rt.cluster_resources()["CPU"]],
+            "lost_object_rebuild_s": rebuild_s, "reconstructions": rebuilt,
+            "batch_during_recovery_bit_equal": True}
+
+
+def cluster_gcs_restart(rt, w, nodes, req_ref, direct):
+    """(e) The GCS process killed and restarted on its old port."""
+    from ray_tpu_torch._private.config import get_config
+    from ray_tpu_torch._private.gcs_server import spawn_gcs_process
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as On)
+    old_addr, old = tuple(w.gcs_address), w._gcs_proc
+    old.kill()
+    old.wait(timeout=30)
+    t_restart = time.time()
+    t0 = time.perf_counter()
+    proc, addr = spawn_gcs_process(w.session, get_config().serialize(),
+                                   persist=True, port=old_addr[1])
+    w._gcs_proc = proc
+    check(tuple(addr) == old_addr, f"cluster: the GCS came back on {addr}, "
+          f"not {old_addr}")
+    _wait_until(lambda: w.node_reports.get(nodes["n1"], (0,))[0] > t_restart,
+                "node 1 to report through the restarted GCS")
+    reregister_s = time.perf_counter() - t0
+    alive = {n.node_id: n.alive for n in w.gcs.get_all_node_info()}
+    check(alive.get(nodes["n1"]) is True, "cluster: node 1 is not alive in "
+          "the restarted GCS")
+    again = rt.get_actor("p17_replica")
+    ref = rt.remote(_cut_batch).options(scheduling_strategy=On(
+        nodes["n1"].hex(), soft=False)).remote(req_ref, 1, BATCH)
+    lat, _ = cluster_batch(rt, again, ref, 1, direct, "batch after the GCS "
+                           "restart")
+    print(f"cluster: GCS killed and restarted; node 1 re-registered "
+          f"{reregister_s:.3f} s after the restart; the named replica "
+          f"found; a task pinned to node 1 ran; a batch {lat:.4f} s, bit "
+          f"for bit")
+    return {"restart_to_reregistration_s": reregister_s,
+            "batch_latency_s": lat, "bit_equal_direct": True}
+
+
+def start_client_server(w):
+    """Start the port's client server, joined to the cluster's GCS with
+    ``--num-gpus 1``; returns the process, its address file, its
+    environment and its start time."""
+    from ray_tpu_torch._private import rpc
+    from ray_tpu_torch._private.config import get_config
+    from ray_tpu_torch._private.session_dir import session_dir
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + env.get("PYTHONPATH", "").split(os.pathsep))
+    env["RTPU_SESSION_TOKEN"] = rpc.get_session_token()
+    port_file = session_dir(w.session, "client_server.addr")
+    host, port = w.gcs_address
+    log = open(session_dir(w.session, "client_server.log"), "ab")
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch._private.client_server",
+         "--address", f"{host}:{port}", "--port-file", port_file,
+         "--config", get_config().serialize(), "--num-gpus", "1"],
+        env=env, start_new_session=True, stdout=log, stderr=log)
+    log.close()
+    return server, port_file, env, t0
+
+
+def cluster_client(nodes, local, server, port_file, env, t0):
+    """(f) A thin ``rtpu://`` client through the port's client server
+    (``server``, started at ``t0``); its flash forward held against
+    ``local``, the same call in this process."""
+    _wait_until(lambda: os.path.exists(port_file)
+                or server.poll() is not None, "the client server")
+    check(server.poll() is None, f"cluster: the client server exited "
+          f"({server.returncode})")
+    start_s = time.perf_counter() - t0
+    addr = "rtpu://" + open(port_file).read().strip()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", CLUSTER_CLIENT, addr, nodes["n1"].hex(),
+         json.dumps(CLIENT_ATTN), str(SEED), DEVICE, str(CLUSTER_PINGS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=900)
+    client_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"cluster: the client failed: "
+          f"{run.stderr[-2000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    flash = got["flash"]
+    check(flash["pid"] == server.pid, f"cluster: the client's GPU task ran "
+          f"in pid {flash['pid']}, not the client server {server.pid}")
+    check(flash["out_sum"] == local["out_sum"]
+          and flash["lse_sum"] == local["lse_sum"],
+          f"cluster: the client's flash forward {flash} differs from this "
+          f"process's {local}")
+    check(flash["launches"] == local["launches"],
+          f"cluster: {flash['launches']} forward launches in the client "
+          f"server, {local['launches']} here")
+    check(got["on_node1"][1] == "", "cluster: node 1's worker sees a card")
+    check(got["counter_a"] == [1, 2] and got["counter_b"] == 3,
+          f"cluster: the detached counter read {got['counter_a']} then "
+          f"{got['counter_b']}")
+    print(f"cluster: client server up in {start_s:.3f} s; the thin "
+          f"client's run {client_s:.3f} s: a task on node 1, the flash "
+          f"forward in the client server (pid {flash['pid']}, "
+          f"{flash['launches']} launch) bit for bit this process's, the "
+          f"detached counter {got['counter_a']} then {got['counter_b']} "
+          f"across connections; an empty task round trip "
+          f"{got['empty_task_s']:.6f} s (median of {CLUSTER_PINGS})")
+    return {"server_start_s": start_s, "client_run_s": client_s,
+            "flash": flash, "flash_local": local,
+            "empty_task_s": got["empty_task_s"],
+            "detached_counter": [*got["counter_a"], got["counter_b"]]}
+
+
+def phase_cluster(direct, card):
+    """Phase 17: the head (this process, the card's owner) with the GCS in
+    its own process, two remote raylets that see no card, the flagship
+    served from batches cut on them, a node lost and the GCS restarted
+    while it serves, and a thin client through the client server."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    t_phase = time.perf_counter()
+    tmp = tempfile.gettempdir()
+    disks = [_df(tmp), _df("/dev/shm")]
+    print(f"cluster: disk {disks}")
+    data_stack = _data_stack()
+    print(f"cluster: Data's stack on this machine: {data_stack}")
+    # what the client's forward is held to: the same call here, made
+    # before the phase's launch counts start
+    local = _client_flash(CLIENT_ATTN, SEED, DEVICE)
+    baseline = card_bytes_without_workspaces()
+    torch.cuda.empty_cache()
+    card_free = torch.cuda.mem_get_info()[0]
+    reset_launch_counts()
+    reset_scheduler_launch_counts()
+    cluster = Cluster(head_num_cpus=CLUSTER_HEAD_CPUS, num_gpus=1,
+                      start_gcs=True,
+                      _system_config={"gcs_mode": "process"})
+    w = cluster.worker
+    session = w.session
+    procs, pids, server = [], set(), None
+    out = {"disk": disks, "data_stack": data_stack}
+
+    def track():
+        """Note the processes of the run: the raylets' and the client
+        server's workers, and the head's."""
+        segment_owners(w, pids)
+        pids.update(_children({p.pid for p in procs if p.poll() is None}))
+
+    try:
+        procs.append(w._gcs_proc)
+        nodes, raylet_pid, out["topology"] = cluster_topology(rt, cluster, w)
+        procs += [w.node_group._remote_nodes[nid].proc
+                  for nid in nodes.values()]
+        out["objects"] = cluster_objects(rt, w, nodes)
+        actor, req_ref, batch_refs, out["serve"] = cluster_serve(
+            rt, nodes, direct)
+        out["node_loss"] = cluster_node_loss(rt, cluster, w, nodes,
+                                             raylet_pid, actor, batch_refs,
+                                             direct, track)
+        out["gcs_restart"] = cluster_gcs_restart(rt, w, nodes, req_ref,
+                                                 direct)
+        procs.append(w._gcs_proc)
+        server, *started = start_client_server(w)
+        procs.append(server)
+        out["client"] = cluster_client(nodes, local, server, *started)
+        track()
+        rt.kill(actor)
+        del actor, req_ref, batch_refs
+    finally:
+        t0 = time.perf_counter()
+        if server is not None:
+            server.terminate()
+            try:
+                server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+        cluster.shutdown()
+        teardown_s = time.perf_counter() - t0
+    # what the runtime held (the replica on a driver thread among it) goes
+    # with the last references to it
+    del track, w, cluster
+    launches = launch_counts()
+    check(launches[1:] == (0, 0), "cluster: a backward kernel launched")
+    for proc in procs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+    def running():
+        return ([p.pid for p in procs if p.poll() is None]
+                + [pid for pid in sorted(pids - {os.getpid()})
+                   if _alive(pid)])
+
+    deadline = time.perf_counter() + RUNTIME_FREE_WAIT_S
+    while running() and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    left_procs = {pid: _cmdline(pid) for pid in running()}
+    check(not left_procs, f"cluster: processes still running after "
+          f"teardown: {left_procs}")
+    left = wait_freed(baseline, "cluster")
+
+    def card_free_now():
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info()[0]
+
+    deadline = time.perf_counter() + RUNTIME_FREE_WAIT_S
+    while (card_free_now() < card_free - RUNTIME_FREE_SLACK
+           or segments_left(session, pids)) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    card_free_after = card_free_now()
+    check(card_free_after >= card_free - RUNTIME_FREE_SLACK,
+          f"cluster: the card has {card_free_after} bytes free after the "
+          f"phase, {card_free} before")
+    segments = segments_left(session, pids)
+    check(not segments, f"cluster: segments left in /dev/shm: "
+          f"{segments[:8]} ({len(segments)})")
+    strays = []
+    if os.path.realpath(tmp) != "/tmp":
+        strays = sorted(f for f in os.listdir("/tmp")
+                        if f.startswith(f"rtpt_{session}"))
+    check(not strays, f"cluster: {strays} left in /tmp")
+    sched = scheduler_launches_by_name()
+    client_launches = out["client"]["flash"]["launches"]
+    wall_s = time.perf_counter() - t_phase
+    print(f"cluster: teardown {teardown_s:.3f} s; no process, segment or "
+          f"card memory left ({left} bytes of this process, card free "
+          f"{card_free_after} of {card_free} before); launches here "
+          f"{launches}, in the client server {client_launches}; scheduler "
+          f"{sched}; the phase took {wall_s:.3f} s ({card})")
+    out.update({"launches": {"flash_fwd": launches[0] + client_launches,
+                             "flash_bwd_dq": launches[1],
+                             "flash_bwd_dkv": launches[2]},
+                "head_flash_fwd": launches[0],
+                "client_flash_fwd": client_launches,
+                "scheduler_launches": sched, "teardown_s": teardown_s,
+                "left_bytes": left, "wall_s": wall_s})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3319,10 +4069,17 @@ def main() -> int:
     gang_launches = trained["flagship"]["launches"]
     torch.cuda.empty_cache()
     multislice = this.phase_multislice(card)
+    # Phase 17 hands its remote CPU functions to workers that see no card:
+    # defined in ``__main__``, they are pickled by value and load nothing
+    # but what they use.
+    torch.cuda.empty_cache()
+    clustered = phase_cluster(direct, card)
+    cluster_launches = clustered["launches"]
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
     train_sched = trained["scheduler_launches"]
     multislice_sched = multislice["scheduler_launches"]
+    cluster_sched = clustered["scheduler_launches"]
 
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"training": training, "card": card}))
@@ -3335,6 +4092,7 @@ def main() -> int:
     print(json.dumps({"serve": served, "card": card}))
     print(json.dumps({"train": trained, "card": card}))
     print(json.dumps({"multislice": multislice, "card": card}))
+    print(json.dumps({"cluster": clustered, "card": card}, default=str))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{
@@ -3347,7 +4105,8 @@ def main() -> int:
                      + replica_launches["flash_fwd"]
                      + trainer_launches["flash_fwd"]
                      + serve_launches["flash_fwd"]
-                     + gang_launches["flash_fwd"]),
+                     + gang_launches["flash_fwd"]
+                     + cluster_launches["flash_fwd"]),
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["flash_fwd"],
                              "mesh_training": mesh_launches["flash_fwd"],
@@ -3356,7 +4115,8 @@ def main() -> int:
                              "runtime_trainer":
                              trainer_launches["flash_fwd"],
                              "serve": serve_launches["flash_fwd"],
-                             "train": gang_launches["flash_fwd"]},
+                             "train": gang_launches["flash_fwd"],
+                             "cluster": cluster_launches["flash_fwd"]},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -3378,7 +4138,8 @@ def main() -> int:
                          + pipe_launches[f"flash_bwd_{key}"]
                          + trainer_launches[f"flash_bwd_{key}"]
                          + serve_launches[f"flash_bwd_{key}"]
-                         + gang_launches[f"flash_bwd_{key}"]),
+                         + gang_launches[f"flash_bwd_{key}"]
+                         + cluster_launches[f"flash_bwd_{key}"]),
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"],
                                  "mesh_training":
@@ -3389,7 +4150,9 @@ def main() -> int:
                                  "runtime_trainer":
                                  trainer_launches[f"flash_bwd_{key}"],
                                  "serve": serve_launches[f"flash_bwd_{key}"],
-                                 "train": gang_launches[f"flash_bwd_{key}"]},
+                                 "train": gang_launches[f"flash_bwd_{key}"],
+                                 "cluster":
+                                 cluster_launches[f"flash_bwd_{key}"]},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],
@@ -3417,12 +4180,13 @@ def main() -> int:
             "replaces_fn": f"{replaces.split(':')[0]}::{fn} (jitted jnp)",
             "launches": (scheduler["launches"][key] + burst_sched[key]
                          + serve_sched[key] + train_sched[key]
-                         + multislice_sched[key]),
+                         + multislice_sched[key] + cluster_sched[key]),
             "launches_by_path": {
                 "scheduler": scheduler["launches"][key],
                 "runtime_burst": burst_sched[key],
                 "serve": serve_sched[key], "train": train_sched[key],
-                "multislice": multislice_sched[key]},
+                "multislice": multislice_sched[key],
+                "cluster": cluster_sched[key]},
             "max_abs_err": 0.0, "exact": True,
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": "bytes",

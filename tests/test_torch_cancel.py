@@ -2,9 +2,8 @@
 ``tests/test_cancel.py`` on ``ray_tpu_torch`` (queued tasks never run,
 running tasks get KeyboardInterrupt, force kills the worker, cancelled
 tasks never retry, finished tasks keep their results, actor calls
-refuse, async-actor calls and pipelined tasks cancel).
-``test_cancel_on_remote_raylet`` waits for the port's multi-node
-runtime.
+refuse, async-actor calls and pipelined tasks cancel) and its
+remote-raylet case on the port's ``Cluster``.
 """
 
 import time
@@ -12,6 +11,7 @@ import time
 import pytest
 
 import ray_tpu_torch
+from ray_tpu_torch.cluster_utils import Cluster
 from ray_tpu_torch.exceptions import TaskCancelledError
 
 
@@ -179,3 +179,36 @@ def test_cancel_pipelined_task_never_runs(rt):
     time.sleep(0.5)
     import os
     assert not os.path.exists(marker), "cancelled pipelined task ran"
+
+
+@pytest.fixture
+def ray_start_cluster():
+    """The reference's fixture on the port: a CPU-only head (no card
+    here) plus a helper for adding nodes."""
+    cluster = Cluster(num_gpus=0, head_num_cpus=4)
+    yield cluster
+    cluster.shutdown()
+
+
+def test_cancel_on_remote_raylet(ray_start_cluster, tmp_path):
+    """Cancellation crosses to a remote raylet's worker."""
+    cluster = ray_start_cluster
+    cluster.add_node(num_cpus=2, resources={"RC": 2}, remote=True)
+    started = tmp_path / "started"
+
+    @ray_tpu_torch.remote(resources={"RC": 1})
+    def napper(path):
+        open(path, "w").close()
+        time.sleep(30)
+        return "done"
+
+    ref = napper.remote(str(started))
+    deadline = time.monotonic() + 30
+    while not started.exists():     # running on the remote node
+        assert time.monotonic() < deadline, "the task never started"
+        time.sleep(0.02)
+    ray_tpu_torch.cancel(ref)
+    t0 = time.perf_counter()
+    with pytest.raises(TaskCancelledError):
+        ray_tpu_torch.get(ref, timeout=30)
+    assert time.perf_counter() - t0 < 25

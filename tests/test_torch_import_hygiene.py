@@ -5,6 +5,7 @@ card unless the caller asks for the CPU."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -53,6 +54,48 @@ def test_no_jax_or_ray_tpu_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = sorted(m for m in _imported_modules(tree) if _forbidden(m))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+_RAY_TPU_MODULE = re.compile(r"(?<![\w.])ray_tpu\.[A-Za-z_]")
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                yield first.value
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_string_names_a_ray_tpu_module(path):
+    """The import scan above cannot see a module named in a string, as a
+    spawned process's ``-m ray_tpu._private.raylet_server`` would be: no
+    string constant outside docstrings names a ``ray_tpu.`` module."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(node) for node in _docstrings(tree)}
+    bad = sorted({node.value for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant)
+                  and isinstance(node.value, str) and id(node) not in docs
+                  and _RAY_TPU_MODULE.search(node.value)})
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_string_check_sees_a_spawned_module():
+    """The check above flags the reference's spawn command and passes
+    the port's own."""
+    bad = 'cmd = [sys.executable, "-m", "ray_tpu._private.gcs_server"]'
+    good = 'cmd = [sys.executable, "-m", "ray_tpu_torch._private.gcs_server"]'
+    assert [n.value for n in ast.walk(ast.parse(bad))
+            if isinstance(n, ast.Constant)
+            and _RAY_TPU_MODULE.search(str(n.value))]
+    assert not [n.value for n in ast.walk(ast.parse(good))
+                if isinstance(n, ast.Constant)
+                and _RAY_TPU_MODULE.search(str(n.value))]
 
 
 def test_entry_points_default_to_the_card():
@@ -217,16 +260,36 @@ def test_sources_cover_train_and_multislice():
     assert not missing, missing
 
 
+MULTINODE_MODULES = (
+    "cluster_utils", "_private/gcs_server", "_private/gcs_client",
+    "_private/raylet_server", "_private/client_server")
+
+
+def test_sources_cover_multinode():
+    """The scan above reaches every module of the multi-node plane."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in MULTINODE_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+
+
 @pytest.mark.parametrize("module", ["ray_tpu_torch",
                                     "ray_tpu_torch._private.worker_process",
                                     "ray_tpu_torch.serve",
                                     "ray_tpu_torch.train",
-                                    "ray_tpu_torch.multislice"])
+                                    "ray_tpu_torch.multislice",
+                                    "ray_tpu_torch._private.gcs_server",
+                                    "ray_tpu_torch._private.raylet_server",
+                                    "ray_tpu_torch._private.client_server",
+                                    "ray_tpu_torch.cluster_utils"])
 def test_runtime_imports_load_neither_torch_nor_jax(module):
     """A process worker imports ``worker_process`` (and so the package),
     and a replica in one imports Serve, a gang worker Train and a slice
-    rank the multi-slice plane: in a fresh interpreter none of them
-    loads torch or JAX."""
+    rank the multi-slice plane; the GCS, raylet and client-server
+    processes start from their modules, and a driver imports
+    ``cluster_utils``: in a fresh interpreter none of them loads torch
+    or JAX (a GCS or raylet that imported torch would pay seconds at
+    every start)."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
             "if m in sys.modules))")
@@ -258,22 +321,51 @@ def test_init_needs_a_card_or_an_explicit_gpu_count():
             ray_tpu_torch.shutdown()
 
 
-@pytest.mark.parametrize("depth", ["short", "long"])
-def test_session_files_live_under_tmpdir(tmp_path, depth):
+_SESSION_CODE = {
+    "single": ("import ray_tpu_torch as rt\n"
+               "w = rt.init(num_cpus=1, num_gpus=0, max_process_workers=1)\n"
+               "f = rt.remote(lambda x: x + 1)\n"
+               "print(w.session, rt.get(f.remote(1)))\n"
+               "rt.shutdown()\n"),
+    # A GCS process and one remote raylet: each prints whether it
+    # mapped libtorch, before the value line.
+    "cluster": ("import ray_tpu_torch as rt\n"
+                "from ray_tpu_torch.cluster_utils import Cluster\n"
+                "from ray_tpu_torch.util.scheduling_strategies import (\n"
+                "    NodeAffinitySchedulingStrategy as On)\n"
+                "c = Cluster(num_gpus=0, head_num_cpus=1, start_gcs=True,\n"
+                "            max_process_workers=1)\n"
+                "n = c.add_node(num_cpus=1, remote=True)\n"
+                "f = rt.remote(lambda x: x + 1)\n"
+                "v = rt.get(f.options(scheduling_strategy=On(n.hex(),\n"
+                "    soft=False)).remote(1), timeout=60)\n"
+                "procs = [c._gcs_proc,\n"
+                "         c.worker.node_group._remote_nodes[n].proc]\n"
+                "print(['libtorch' in open(f'/proc/{p.pid}/maps').read()\n"
+                "       for p in procs])\n"
+                "print(c.worker.session, v)\n"
+                "c.shutdown()\n"),
+}
+
+
+@pytest.mark.parametrize("depth,mode", [("short", "single"),
+                                        ("long", "single"),
+                                        ("short", "cluster")],
+                         ids=["short", "long", "cluster"])
+def test_session_files_live_under_tmpdir(tmp_path, depth, mode):
     """Every file a session writes on the host (session dir, the
     ``rtpt_current`` pointer) lands under ``TMPDIR``, and none in
     ``/tmp``. A ``TMPDIR`` too long for a unix socket path still starts
-    process workers (the hub listens in the abstract namespace)."""
+    process workers (the hub listens in the abstract namespace). A
+    cluster's GCS process and remote raylet keep their address, log and
+    state files in the head's and the node's session directories there,
+    and neither loads torch."""
     tmpdir = tmp_path / ("d" * 90 if depth == "long" else "t")
     tmpdir.mkdir()
-    code = ("import ray_tpu_torch as rt\n"
-            "w = rt.init(num_cpus=1, num_gpus=0, max_process_workers=1)\n"
-            "f = rt.remote(lambda x: x + 1)\n"
-            "print(w.session, rt.get(f.remote(1)))\n"
-            "rt.shutdown()\n")
     env = dict(os.environ, TMPDIR=str(tmpdir))
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", _SESSION_CODE[mode]],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     session, value = out.stdout.split()[-2:]
     assert value == "2"
@@ -281,7 +373,15 @@ def test_session_files_live_under_tmpdir(tmp_path, depth):
     assert (ours / "session_token").is_file()
     link = tmpdir / f"rtpt_current_{os.getuid()}"
     assert os.path.realpath(link) == str(ours)
-    assert not os.path.exists(f"/tmp/rtpt_{session}")
+    assert not any(name.startswith(f"rtpt_{session}")
+                   for name in os.listdir("/tmp"))
     tmp_link = f"/tmp/rtpt_current_{os.getuid()}"
     assert not (os.path.lexists(tmp_link)
                 and os.path.realpath(tmp_link) == str(ours))
+    if mode == "cluster":
+        assert out.stdout.splitlines()[-2] == "[False, False]"
+        for name in ("gcs.addr", "gcs.log", "gcs_state.bin"):
+            assert (ours / name).is_file(), name
+        node = tmpdir / f"rtpt_{session}n1"
+        assert [p.suffix for p in sorted(node.glob("raylet_*"))] \
+            == [".addr", ".log"]

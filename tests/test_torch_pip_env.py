@@ -4,8 +4,8 @@ Offline-friendly: each test installs a tiny LOCAL source package with
 ``--no-index``, so no network is involved; the mechanism (venv build
 under the temporary directory's ``rtpt_venvs``, cache key, dedicated
 tagged workers, failure propagation, the refusal of a GPU demand) is
-exactly the real path. ``test_pip_env_on_remote_raylet`` waits for the
-port's multi-node runtime.
+exactly the real path; its remote-raylet case runs on the port's
+``Cluster``.
 """
 
 import os
@@ -15,6 +15,7 @@ import pytest
 
 import ray_tpu_torch
 from ray_tpu_torch._private import pip_env
+from ray_tpu_torch.cluster_utils import Cluster
 
 
 @pytest.fixture
@@ -123,3 +124,31 @@ def test_pip_env_rejects_gpu_demand(ray_start_regular, tmp_path):
     ref = f.options(runtime_env={"pip": _pip_spec(pkg_dir)}).remote()
     with pytest.raises(Exception, match="GPU"):
         ray_tpu_torch.get(ref, timeout=60)
+
+
+@pytest.fixture
+def ray_start_cluster():
+    """The reference's fixture on the port: a CPU-only head (no card
+    here) plus a helper for adding nodes."""
+    cluster = Cluster(num_gpus=0, head_num_cpus=4)
+    yield cluster
+    cluster.shutdown()
+
+
+def test_pip_env_on_remote_raylet(ray_start_cluster, tmp_path,
+                                  cleanup_envs):
+    """The raylet process builds its node's venvs (a cache per node, as
+    in the reference architecture)."""
+    cluster = ray_start_cluster
+    cluster.add_node(num_cpus=2, resources={"R": 2}, remote=True)
+    pkg_dir = _make_local_pkg(tmp_path, "rtpt_testpkg_c", 55)
+    spec = _pip_spec(pkg_dir)
+    cleanup_envs.append(pip_env.env_key(spec))
+
+    @ray_tpu_torch.remote(resources={"R": 1})
+    def use_pkg():
+        import rtpt_testpkg_c
+        return rtpt_testpkg_c.VALUE
+
+    ref = use_pkg.options(runtime_env={"pip": spec}).remote()
+    assert ray_tpu_torch.get(ref, timeout=180) == 55

@@ -1,9 +1,8 @@
 """The port's streaming generator tasks (``num_returns="streaming"``):
 the single-node cases of the JAX package's ``tests/test_streaming.py``
 run against ``ray_tpu_torch`` on ``init(num_cpus=4, num_gpus=8,
-max_process_workers=2)``. Its remote-raylet case waits for the port's
-multi-node runtime. Serve's streaming handles stand on these
-generators.
+max_process_workers=2)``, and its remote-raylet case on the port's
+``Cluster``. Serve's streaming handles stand on these generators.
 """
 
 import time
@@ -13,6 +12,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch.cluster_utils import Cluster
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -135,3 +135,26 @@ def test_streaming_launched_from_inside_task(ray_start_regular):
         return [ray_tpu_torch.get(ref) for ref in g]
 
     assert ray_tpu_torch.get(outer.remote(4), timeout=60) == [100, 101, 102, 103]
+
+
+@pytest.fixture
+def ray_start_cluster():
+    """The reference's fixture on the port: a CPU-only head (no card
+    here) plus a helper for adding nodes."""
+    cluster = Cluster(num_gpus=0, head_num_cpus=4)
+    yield cluster
+    cluster.shutdown()
+
+
+def test_streaming_on_remote_raylet(ray_start_cluster):
+    cluster = ray_start_cluster
+    cluster.add_node(num_cpus=2, resources={"SG": 1}, remote=True)
+
+    @ray_tpu_torch.remote(num_cpus=1, resources={"SG": 1},
+                          num_returns="streaming")
+    def gen(n):
+        for i in range(n):
+            yield np.full(60_000, i, dtype=np.float64)
+
+    vals = [float(ray_tpu_torch.get(r)[0]) for r in gen.remote(3)]
+    assert vals == [0.0, 1.0, 2.0]
