@@ -201,13 +201,53 @@ Phases, each fatal on failure:
    found again after a reconnect. (g) Teardown: every process exited, the
    card's memory back, no segment of the run in ``/dev/shm`` and nothing
    of it in ``/tmp``.
+18. Data, Tune and sharded checkpoints (``ray_tpu_torch.data``,
+   ``ray_tpu_torch.tune``, ``train.array_checkpoint``), after a fresh
+   ``init()``; it prints the free bytes of ``TMPDIR`` and ``/dev/shm`` and
+   the pyarrow and pandas versions first. (a) Phase 6's 8 requests as a
+   Dataset of 2 blocks of 4 rows, a CPU ``map_batches`` stage in process
+   workers adding a checksum column, then ``map_batches(FlagshipPredictor,
+   batch_size=4, concurrency=1, num_gpus=1)``: answers bit for bit phase
+   6's, in order, 8 forward launches a batch and no backward, the actor
+   on a thread of the driver, the checksums exact, 4 blocks produced and
+   2 consumed, the card's memory back once the dataset is consumed; rows/s
+   beside phase 6's direct batches. (b) Phase 7's batch three times as a
+   12-row Dataset feeding a one-worker ``DataParallelTrainer`` with
+   ``use_gpu=True``: 3 steps from the seed-0 state whose losses and grad
+   norms are held to phase 15's (bit for bit, or within
+   MESH_FIRST_LOSS_REL), 8/8/8 launches a step, the seconds the loop
+   waited on the shard's iterator; then ``iter_device_batches`` gives
+   CUDA tensors equal to phase 7's tokens. (c) ``range(8 << 20)`` (64 MB
+   of int64) through ``random_shuffle(seed=0)`` and ``repartition(16)`` on
+   process workers: count and sum exact, order changed, the queued-bytes
+   gauge back to 0; seconds and GB/s. (d) A ``Tuner`` sweep of the
+   flagship's peak learning rate over 4 values (warmup 1 step), 3 steps a
+   trial on phase 7's batch, on ``{"GPU": 0.5}`` trials 2 at a time: each
+   trial's losses held to a direct loop's at its learning rate (bit for
+   bit, or within MESH_FIRST_LOSS_REL), every trial's reports its own, the
+   best trial the direct loops' best, 96 launches of each kernel over the
+   12 trial steps, the peak memory of two trials on the card; the card's
+   memory back and no ``rtpt_trial`` directory left. (e) The seed-0
+   TrainState as DTensors on a world-size-1 mesh (an NCCL process group;
+   the save's collectives on a gloo group of their own) saved by
+   ``save_sharded(..., async_save=True)``,
+   one training step taken in place as soon as it returns, then
+   ``wait()``: ``restore_sharded`` gives every leaf bit for bit the state
+   at the call, and a step from it equals the step taken, bit for bit;
+   staging, background-write and restore seconds and the bytes on disk
+   beside phase 15's ``save_pytree`` and ``load_pytree``. (f) Teardown: the
+   phase's tensors gone and the card's free bytes back to the phase's
+   start (within RUNTIME_FREE_SLACK; read after each part too), no segment
+   of the run in ``/dev/shm`` and nothing of it in ``/tmp``.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
 ``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
-``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}`` and
-``{"kernels": [...]}`` lines,
+``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}``,
+``{"data": ...}``, ``{"tune": ...}`` and ``{"kernels": [...]}`` lines (each
+kernel's ``launches_by_path`` has the ``data``, ``tune`` and
+``checkpoint`` paths of phase 18),
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2144,6 +2184,15 @@ def card_bytes_without_workspaces():
     return torch.cuda.memory_allocated()
 
 
+def card_free_bytes():
+    """The card's free bytes once cuBLAS's workspaces are released and
+    torch's cache is emptied: what library state outside torch's
+    allocator (NCCL's buffers, loaded modules) leaves free."""
+    card_bytes_without_workspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
 def wait_freed(baseline, what):
     """Wait until the card's allocated bytes fall back to ``baseline``
     (within RUNTIME_FREE_SLACK): what went away must take its tensors."""
@@ -4027,6 +4076,584 @@ def phase_cluster(direct, card):
     return out
 
 
+# -- Data, Tune and sharded checkpoints ---------------------------------------
+
+DATA_BLOCK_ROWS = 4                   # phase 6's requests: 2 blocks of 4 rows
+DATA_TRAIN_REPEATS = 3                # phase 7's batch, 3 times: 12 rows
+SHUFFLE_ROWS = 8 << 20                # int64: 64 MB
+SHUFFLE_BLOCKS = 16
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)   # the grid of peak learning rates
+TUNE_STEPS = 3
+TUNE_WARMUP = 1                       # the sweep's schedule: lr from step 1
+TUNE_CONTEXT = {}                     # the tokens the trials train on
+
+
+def _counts():
+    """Flash and scheduler launch counters, read together."""
+    return launch_counts() + scheduler_launch_counts()
+
+
+def _launch_delta(before):
+    """Launches since ``before`` (a ``_counts()``): the flash kernels'
+    and the scheduler kernels' by name."""
+    now = _counts()
+    diff = [a - b for a, b in zip(now, before)]
+    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                    + SCHEDULER_KERNELS, diff))
+
+
+def _add_launches(*parts):
+    out = {}
+    for part in parts:
+        for key, n in part.items():
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+class FlagshipPredictor:
+    """Phase 18 (a)'s ``map_batches`` class on a ``num_gpus=1`` actor: the
+    flagship from seed 0 on the card, answering each batch of token rows
+    as phase 6's ``Replica`` does (greedy next token and the head of the
+    last-position logits), with the launches of its forward and where it
+    ran."""
+
+    def __init__(self):
+        self.cfg = flagship_config()
+        self.params = tfm.init_params(self.cfg, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        self.pid, self.thread = os.getpid(), threading.get_ident()
+
+    def __call__(self, batch):
+        tokens = torch.from_numpy(np.require(batch["tokens"],
+                                             requirements="W")).to(DEVICE)
+        before = launch_counts()
+        with torch.inference_mode():
+            logits = tfm.forward(self.params, tokens, self.cfg)
+        last = logits[:, -1]
+        out = {"next_token": last.argmax(dim=-1),
+               "logits_head": last[:, :4].float()}
+        torch.cuda.synchronize()
+        n = len(tokens)
+        launches = [a - b for a, b in zip(launch_counts(), before)]
+        return {**out, "checksum": batch["checksum"],
+                "cpu_pid": batch["cpu_pid"],
+                "launches": np.tile(np.asarray(launches), (n, 1)),
+                "pid": np.full(n, os.getpid()),
+                "thread": np.full(n, threading.get_ident()),
+                "built_in": np.full(n, self.pid)}
+
+
+def data_inference(rt, rdata, data_stats, direct, card):
+    """(a) Phase 6's requests through a CPU stage and the predictor."""
+    cfg = flagship_config()
+    rows = direct["requests"].cpu().numpy()
+    checksums = rows.sum(axis=1)
+    baseline = card_bytes_without_workspaces()
+    before_stats = data_stats.snapshot()
+    before = _counts()
+    t0 = time.perf_counter()
+    n_blocks = len(rows) // DATA_BLOCK_ROWS
+    ds = rdata.from_items([{"tokens": r} for r in rows],
+                          parallelism=n_blocks)
+    ds = ds.map_batches(
+        lambda b: {"tokens": b["tokens"],
+                   "checksum": b["tokens"].sum(axis=1),
+                   "cpu_pid": np.full(len(b["tokens"]), os.getpid())})
+    ds = ds.map_batches(FlagshipPredictor, batch_size=BATCH, concurrency=1,
+                        num_gpus=1)
+    got = list(ds.iter_rows())
+    wall_s = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    stats = {k: v - before_stats[k]
+             for k, v in data_stats.snapshot().items()}
+    answers = [{"next_token": int(r["next_token"]),
+                "logits_head": [float(x) for x in r["logits_head"]]}
+               for r in got]
+    check_answers(answers, direct["answers"], direct["logits_gap_bf16_fp32"],
+                  "data: batch inference", bit_equal=True)
+    check([int(r["checksum"]) for r in got] == checksums.tolist(),
+          "data: the CPU stage's checksums differ from numpy's")
+    per_batch = {tuple(int(x) for x in r["launches"]) for r in got}
+    check(per_batch == {(cfg.n_layers, 0, 0)},
+          f"data: (fwd, dQ, dK/dV) launches a batch {per_batch}")
+    check((launches["flash_fwd"], launches["flash_bwd_dq"],
+           launches["flash_bwd_dkv"])
+          == (cfg.n_layers * len(rows) // BATCH, 0, 0),
+          f"data: launches {launches} for {len(rows) // BATCH} batches")
+    check({int(r["pid"]) for r in got} == {os.getpid()}
+          and {int(r["built_in"]) for r in got} == {os.getpid()}
+          and threading.get_ident() not in {int(r["thread"]) for r in got},
+          "data: the predictor did not run on a thread of the driver")
+    check(os.getpid() not in {int(r["cpu_pid"]) for r in got},
+          "data: the CPU stage ran in the driver, not in a process worker")
+    check(stats["blocks_produced"] == 2 * n_blocks
+          and stats["blocks_consumed"] == n_blocks,
+          f"data: blocks produced {stats['blocks_produced']}, consumed "
+          f"{stats['blocks_consumed']}; expected {2 * n_blocks} and "
+          f"{n_blocks}")
+    del ds
+    left = wait_freed(baseline, "the consumed dataset's predictor")
+    out = {"rows": len(rows), "blocks": n_blocks, "wall_s": wall_s,
+           "rows_per_s": len(rows) / wall_s,
+           "direct_batch_latency_s": direct["latency_s"],
+           "direct_rows_per_s": len(rows) / sum(direct["latency_s"]),
+           "bit_equal_direct": True, "blocks_produced":
+           stats["blocks_produced"], "blocks_consumed":
+           stats["blocks_consumed"], "left_after_bytes": left,
+           "launches": launches}
+    print(f"data (a) ({card}): {len(rows)} rows in {n_blocks} blocks through "
+          f"a CPU stage and the num_gpus=1 predictor in {wall_s:.3f} s "
+          f"({out['rows_per_s']:.2f} rows/s; phase 6's direct batches "
+          f"{direct['latency_s']} s, {out['direct_rows_per_s']:.2f} rows/s); "
+          f"answers bit for bit phase 6's; launches {launches}; blocks "
+          f"produced {stats['blocks_produced']}, consumed "
+          f"{stats['blocks_consumed']}; {left} bytes left")
+    return out
+
+
+def data_flagship_loop(config):
+    """Phase 18 (b)'s user loop, on the gang's one worker (a thread of the
+    driver): the seed-0 TrainState, one step per batch of its dataset
+    shard, each batch moved to the card; one report a step with the
+    seconds the loop waited on the shard's iterator."""
+    train = importlib.import_module("ray_tpu_torch.train")
+    cfg = flagship_config()
+    tx = trn.make_optimizer(total_steps=1000)
+    state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE)
+    step = trn.make_train_step(cfg, tx)
+    batches = iter(train.get_dataset_shard("train").iter_batches(
+        batch_size=BATCH))
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        wait_s = time.perf_counter() - t0
+        if batch is None:
+            break
+        tokens = torch.from_numpy(np.require(batch["tokens"],
+                                             requirements="W")).to(DEVICE)
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        train.report({"step": int(metrics["step"]),
+                      "loss": metrics["loss"].item(),
+                      "grad_norm": metrics["grad_norm"].item(),
+                      "step_s": time.perf_counter() - t0, "wait_s": wait_s,
+                      "launches": [a - b for a, b in zip(launch_counts(),
+                                                         counts)],
+                      "tokens_equal": bool(torch.equal(tokens,
+                                                       config["tokens"]))})
+
+
+def data_trainer(rt, rdata, tokens, trained, scratch, card):
+    """(b) Phase 7's batch, three times, feeding a one-worker trainer; then
+    ``iter_device_batches`` over the same Dataset."""
+    train = importlib.import_module("ray_tpu_torch.train")
+    cfg = flagship_config()
+    rows = tokens.cpu().numpy()
+    ds = rdata.from_items([{"tokens": r} for r in rows] * DATA_TRAIN_REPEATS,
+                          parallelism=DATA_TRAIN_REPEATS)
+    baseline = card_bytes_without_workspaces()
+    before = _counts()
+    t0 = time.perf_counter()
+    res = train.DataParallelTrainer(
+        data_flagship_loop, train_loop_config={"tokens": tokens},
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(name="data_fed",
+                                   storage_path=os.path.join(scratch,
+                                                             "results")),
+        datasets={"train": ds}).fit()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    check(res.error is None, f"data: the fit failed: {res.error!r}")
+    hist = res.metrics_history
+    gang = trained["flagship"]
+    check(len(hist) == DATA_TRAIN_REPEATS,
+          f"data: {len(hist)} reports, expected {DATA_TRAIN_REPEATS}")
+    bit_equal = True
+    for i, m in enumerate(hist):
+        check(m["step"] == i and m["tokens_equal"],
+              f"data: report {i}: step {m['step']}, tokens equal to phase "
+              f"7's {m['tokens_equal']}")
+        check(tuple(m["launches"]) == (cfg.n_layers,) * 3,
+              f"data: step {i}: launches {m['launches']}")
+        for name, x, y in (("loss", m["loss"], gang["losses"][i]),
+                           ("grad norm", m["grad_norm"],
+                            gang["grad_norms"][i])):
+            bit_equal = bit_equal and x == y
+            check(math.isfinite(x) and abs(x - y) <= MESH_FIRST_LOSS_REL
+                  * abs(y), f"data: step {i}: {name} {x}, phase 15's {y}")
+    check(launches["flash_fwd"] == launches["flash_bwd_dq"]
+          == launches["flash_bwd_dkv"] == cfg.n_layers * len(hist),
+          f"data: the fit's launches {launches}")
+    left = wait_freed(baseline, "the data-fed fit's gang")
+    device_batches = 0
+    for batch in ds.iter_device_batches(batch_size=BATCH, device=DEVICE):
+        t = batch["tokens"]
+        check(t.device == tokens.device and torch.equal(t, tokens),
+              f"data: iter_device_batches gave {t.device} tokens unequal "
+              f"to phase 7's")
+        device_batches += 1
+    check(device_batches == DATA_TRAIN_REPEATS,
+          f"data: iter_device_batches gave {device_batches} batches")
+    out = {"fit_s": fit_s, "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "bit_equal_phase15": bit_equal,
+           "step_time_s": [m["step_s"] for m in hist],
+           "iterator_wait_s": [m["wait_s"] for m in hist],
+           "phase15_step_time_s": gang["step_time_s"],
+           "device_batches": device_batches, "left_after_bytes": left,
+           "launches": launches}
+    print(f"data (b) ({card}): a {len(rows) * DATA_TRAIN_REPEATS}-row "
+          f"Dataset fed the flagship's one-worker trainer: losses "
+          f"{out['losses']} (phase 15 {gang['losses']}), bit for bit "
+          f"{bit_equal}; step times {out['step_time_s']} s, waits on the "
+          f"iterator {out['iterator_wait_s']} s; fit {fit_s:.2f} s; "
+          f"launches {launches}; iter_device_batches gave {device_batches} "
+          f"CUDA batches equal to phase 7's")
+    return out
+
+
+def data_shuffle(rt, rdata, data_stats, card):
+    """(c) 64 MB of int64 shuffled and repartitioned on process workers."""
+    metrics = importlib.import_module("ray_tpu_torch.util.metrics")
+    n = SHUFFLE_ROWS
+    t0 = time.perf_counter()
+    ds = rdata.range(n).random_shuffle(seed=SEED).repartition(SHUFFLE_BLOCKS)
+    count, total, blocks, head = 0, 0, 0, None
+    for blk in ds.iter_blocks():
+        ids = blk.column("id").to_numpy()
+        if head is None and len(ids):
+            head = ids[:16].tolist()
+        count += len(ids)
+        total += int(ids.sum())
+        blocks += 1
+    seconds = time.perf_counter() - t0
+    check(count == n and total == n * (n - 1) // 2,
+          f"data: the shuffle gave {count} rows summing to {total}")
+    check(blocks == SHUFFLE_BLOCKS, f"data: {blocks} blocks after "
+          f"repartition({SHUFFLE_BLOCKS})")
+    check(head != list(range(16)), f"data: the shuffle kept the order "
+          f"{head}")
+    check(data_stats.queued_bytes_by_stage() == {}
+          and "ray_tpu_data_queued_bytes{" not in metrics.prometheus_text(),
+          "data: ray_tpu_data_queued_bytes is not back to 0")
+    gbs = 8 * n / seconds / 1e9
+    print(f"data (c) ({card}): random_shuffle + repartition({SHUFFLE_BLOCKS}) "
+          f"of {8 * n} bytes in {seconds:.3f} s ({gbs:.3f} GB/s); count and "
+          f"sum exact, order changed, queued bytes back to 0")
+    return {"bytes": 8 * n, "seconds": seconds, "gb_per_s": gbs,
+            "blocks": blocks}
+
+
+def tune_flagship_trainable(config):
+    """Phase 18 (d)'s trial: the seed-0 TrainState, TUNE_STEPS steps on
+    phase 7's batch at the trial's peak learning rate, one report a step
+    with the trial's own learning rate and where it ran."""
+    tune = importlib.import_module("ray_tpu_torch.tune")
+    cfg = flagship_config()
+    tx = trn.make_optimizer(lr=config["lr"], warmup_steps=TUNE_WARMUP,
+                            total_steps=1000)
+    state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE)
+    step = trn.make_train_step(cfg, tx)
+    tokens = TUNE_CONTEXT["tokens"]
+    for _ in range(TUNE_STEPS):
+        state, metrics = step(state, {"tokens": tokens})
+        tune.report({"lr": config["lr"], "step": int(metrics["step"]),
+                     "loss": metrics["loss"].item(),
+                     "grad_norm": metrics["grad_norm"].item(),
+                     "pid": os.getpid(), "thread": threading.get_ident()})
+
+
+def tune_direct(tokens, lr):
+    cfg = flagship_config()
+    tx = trn.make_optimizer(lr=lr, warmup_steps=TUNE_WARMUP,
+                            total_steps=1000)
+    state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE)
+    step = trn.make_train_step(cfg, tx)
+    losses = []
+    for _ in range(TUNE_STEPS):
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(metrics["loss"].item())
+    return losses
+
+
+def phase_tune(rt, w, tokens, scratch, card):
+    """(d) A Tuner sweep of the flagship's learning rate on two
+    ``{"GPU": 0.5}`` trials at a time, against direct loops."""
+    tune = importlib.import_module("ray_tpu_torch.tune")
+    session_dir = importlib.import_module(
+        "ray_tpu_torch._private.session_dir").session_dir(w.session)
+    cfg = flagship_config()
+    direct = {lr: tune_direct(tokens, lr) for lr in TUNE_LRS}
+    torch.cuda.empty_cache()
+    baseline = card_bytes_without_workspaces()
+    TUNE_CONTEXT["tokens"] = tokens
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        tune_flagship_trainable,
+        param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=2,
+            trial_resources={"GPU": 0.5}),
+        run_config=importlib.import_module("ray_tpu_torch.train").RunConfig(
+            name="sweep", storage_path=os.path.join(scratch, "results"))
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    peak = torch.cuda.max_memory_allocated()
+    TUNE_CONTEXT.clear()
+    check(not grid.errors, f"tune: trial errors {grid.errors}")
+    results = list(grid)
+    check(len(results) == len(TUNE_LRS), f"tune: {len(results)} results")
+    worst, bit_equal, threads = 0.0, True, set()
+    for res in results:
+        hist = res.metrics_history
+        lr = hist[0]["lr"] if hist else None
+        check(lr in direct and [m["lr"] for m in hist] == [lr] * TUNE_STEPS
+              and [m["step"] for m in hist] == list(range(TUNE_STEPS)),
+              f"tune: a trial's reports {[(m['lr'], m['step']) for m in hist]}"
+              f" are not one trial's {TUNE_STEPS} steps")
+        check({m["pid"] for m in hist} == {os.getpid()},
+              "tune: a {\"GPU\": 0.5} trial ran outside the driver")
+        threads.update(m["thread"] for m in hist)
+        for m, want in zip(hist, direct[lr]):
+            err = abs(m["loss"] - want) / abs(want)
+            worst = max(worst, err)
+            bit_equal = bit_equal and m["loss"] == want
+            check(math.isfinite(m["loss"]) and err <= MESH_FIRST_LOSS_REL,
+                  f"tune: lr {lr} step {m['step']}: loss {m['loss']}, the "
+                  f"direct loop's {want}")
+    best = grid.get_best_result()
+    direct_best = min(TUNE_LRS, key=lambda lr: min(direct[lr]))
+    check(best.metrics["lr"] == direct_best,
+          f"tune: best trial lr {best.metrics['lr']}, the direct loops' "
+          f"{direct_best}")
+    n_steps = len(TUNE_LRS) * TUNE_STEPS
+    check(launches["flash_fwd"] == launches["flash_bwd_dq"]
+          == launches["flash_bwd_dkv"] == cfg.n_layers * n_steps,
+          f"tune: launches {launches} over {n_steps} trial steps")
+    check(threading.get_ident() not in threads,
+          "tune: a trial ran on the driver's main thread")
+    left = wait_freed(baseline, "the sweep's trials")
+    stray = [d for d in os.listdir(session_dir) if d.startswith("rtpt_trial")]
+    check(not stray, f"tune: trial dirs left {stray}")
+    out = {"lrs": list(TUNE_LRS), "steps": TUNE_STEPS, "fit_s": fit_s,
+           "losses": {str(r.metrics_history[0]["lr"]):
+                      [m["loss"] for m in r.metrics_history]
+                      for r in results},
+           "direct_losses": {str(lr): v for lr, v in direct.items()},
+           "loss_rel_err": worst, "bit_equal_direct": bit_equal,
+           "best_lr": best.metrics["lr"], "peak_mem_bytes": peak,
+           "trial_threads": len(threads), "left_after_bytes": left,
+           "launches": launches}
+    print(f"tune ({card}): {len(TUNE_LRS)} trials of {TUNE_STEPS} steps on "
+          f"GPU 0.5, 2 at a time, in {fit_s:.2f} s; losses within {worst:.3g}"
+          f" of direct loops (bit for bit {bit_equal}); best lr "
+          f"{best.metrics['lr']} as the direct loops'; peak {peak} bytes "
+          f"with two trials on the card; launches {launches}; {left} bytes "
+          f"left, no trial dir left")
+    return out
+
+
+def _tree_equal(a, b):
+    """Every leaf of two state trees equal bit for bit (DTensors by their
+    blocks)."""
+    DTensor = importlib.import_module("torch.distributed.tensor").DTensor
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    if isinstance(a, DTensor):
+        return (isinstance(b, DTensor) and a.placements == b.placements
+                and torch.equal(a.to_local(), b.to_local()))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def phase_checkpoint(trained, tokens, scratch, card):
+    """(e) The seed-0 TrainState as DTensors on a world-size-1 mesh, saved
+    asynchronously, stepped in place at once, restored and stepped
+    again."""
+    import torch.distributed as dist
+    pmesh = importlib.import_module("ray_tpu_torch.parallel.mesh")
+    ack = importlib.import_module("ray_tpu_torch.train.array_checkpoint")
+    pytree = importlib.import_module("torch.utils._pytree")
+    cfg = flagship_config()
+    rendezvous = tempfile.mkdtemp(prefix="pg_", dir=scratch)
+    free_before_pg = card_free_bytes()
+    # training's usual group: NCCL alone; the save's own collectives run
+    # on a gloo group that ``array_checkpoint`` makes
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo",
+        init_method=f"file://{rendezvous}/pg", rank=0, world_size=1)
+    before = _counts()
+    try:
+        mesh = pmesh.make_mesh(pmesh.MeshSpec.auto(1), device=DEVICE)
+        tx = trn.make_optimizer(total_steps=1000)
+        state = trn.init_state(cfg, tx, seed=SEED, device=DEVICE, mesh=mesh)
+        step = trn.make_train_step(cfg, tx, mesh)
+        tree = train_state_tree(state)
+        state_bytes = sum(x.numel() * x.element_size()
+                          for x in pytree.tree_leaves(tree)
+                          if isinstance(x, torch.Tensor))
+        disk = shutil.disk_usage(scratch)
+        check(disk.free > 1.1 * state_bytes,
+              f"checkpoint: {disk.free} bytes free under {scratch}, the "
+              f"state is {state_bytes}")
+        pre = pytree.tree_map(
+            lambda x: x.detach().clone() if isinstance(x, torch.Tensor)
+            else x, tree)
+        path = os.path.join(scratch, "sharded")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = ack.save_sharded(path, tree, async_save=True)
+        staged_s = time.perf_counter() - t0
+        # one step at once: AdamW updates the saved tensors in place
+        t1 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        first = (metrics["loss"].item(), metrics["grad_norm"].item())
+        # (at step 0 the learning rate is 0: the moments move, in place)
+        check(not _tree_equal(tree["mu"], pre["mu"]),
+              "checkpoint: the step did not update the saved moments")
+        handle.wait()
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(path)
+        template = train_state_tree(state)
+        t0 = time.perf_counter()
+        restored = ack.restore_sharded(path, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(_tree_equal(restored, pre), "checkpoint: the restored state "
+              "differs from the state at the call")
+        del pre, template
+        torch.cuda.empty_cache()
+        again = trn.TrainState(
+            step=restored["step"], params=restored["params"],
+            opt_state=trn.AdamWState(count=restored["count"],
+                                     mu=restored["mu"], nu=restored["nu"]))
+        again, metrics = step(again, {"tokens": tokens})
+        second = (metrics["loss"].item(), metrics["grad_norm"].item())
+        check(second == first, f"checkpoint: a step from the restored "
+              f"state gave {second}, the step taken gave {first}")
+        check(_tree_equal(train_state_tree(again), train_state_tree(state)),
+              "checkpoint: the restored state's step differs from the step "
+              "taken")
+        del state, again, restored, tree
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    # what the part's process group and save left outside torch's
+    # allocator (NCCL's own buffers, if any stay)
+    pg_held = free_before_pg - card_free_bytes()
+    launches = _launch_delta(before)
+    check(launches["flash_fwd"] == launches["flash_bwd_dq"]
+          == launches["flash_bwd_dkv"] == 2 * cfg.n_layers,
+          f"checkpoint: launches {launches} over 2 steps")
+    gang = trained["flagship"]
+    out = {"state_bytes": state_bytes, "ckpt_bytes": ckpt_bytes,
+           "staged_s": staged_s, "step_s": step_s,
+           "background_write_s": write_s, "restore_s": restore_s,
+           "save_pytree_s": gang["save_s"], "load_pytree_s": gang["load_s"],
+           "loss": first[0], "grad_norm": first[1],
+           "restored_bit_equal": True, "step_bit_equal": True,
+           "process_group_held_bytes": pg_held, "launches": launches}
+    print(f"checkpoint ({card}): {state_bytes} bytes of DTensor state saved "
+          f"async: returned after {staged_s:.2f} s (staged), written by "
+          f"{write_s:.2f} s, {ckpt_bytes} bytes on disk; restored in "
+          f"{restore_s:.2f} s; phase 15's save_pytree {gang['save_s']:.2f} s"
+          f", load_pytree {gang['load_s']:.2f} s; the step taken during the "
+          f"write and the step from the restored state bit for bit equal "
+          f"(loss {first[0]!r}); launches {launches}")
+    return out
+
+
+def phase_data(direct, tokens, trained, card):
+    """Phase 18: Data, Tune and sharded checkpoints on the card."""
+    import ray_tpu_torch as rt
+    t_phase = time.perf_counter()
+    tmp = tempfile.gettempdir()
+    disks = [_df(tmp), _df("/dev/shm")]
+    rdata = importlib.import_module("ray_tpu_torch.data")
+    stack = {name: importlib.import_module(name).__version__
+             for name in ("pyarrow", "pandas")}
+    print(f"data: disk {disks}; Data's stack {stack} ({card})")
+    data_stats = importlib.import_module("ray_tpu_torch._private.data_stats")
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    baseline = card_bytes_without_workspaces()
+    card_free = card_free_bytes()
+    # the card's free bytes after each part: where library state outside
+    # torch's allocator, if any, stayed
+    free_by_part = {}
+    w = rt.init()
+    session, pids = w.session, set()
+    out = {"disk": disks, "data_stack": stack}
+    try:
+        for thread in list(tp._device_rt_threads.values()):
+            thread.join(timeout=60)
+        out["inference"] = data_inference(rt, rdata, data_stats, direct, card)
+        free_by_part["inference"] = card_free_bytes()
+        out["trainer"] = data_trainer(rt, rdata, tokens, trained, scratch,
+                                      card)
+        free_by_part["trainer"] = card_free_bytes()
+        out["shuffle"] = data_shuffle(rt, rdata, data_stats, card)
+        segment_owners(w, pids)
+        free_by_part["shuffle"] = card_free_bytes()
+        tuned = phase_tune(rt, w, tokens, scratch, card)
+        segment_owners(w, pids)
+    finally:
+        segment_owners(w, pids)
+        rt.shutdown()
+    free_by_part["tune"] = card_free_bytes()
+    checkpoint = phase_checkpoint(trained, tokens, scratch, card)
+    free_by_part["checkpoint"] = card_free_bytes()
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # (f) teardown: the phase's tensors are gone, and the card's free
+    # bytes, which also count library state outside torch's allocator
+    # that a thread of a trial, a predictor or a gang worker could keep,
+    # are back to where they were
+    left = wait_freed(baseline, "phase 18")
+    deadline = time.perf_counter() + RUNTIME_FREE_WAIT_S
+    while (card_free_bytes() < card_free - RUNTIME_FREE_SLACK
+           or segments_left(session, pids)) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    card_free_after = card_free_bytes()
+    free_by_part["teardown"] = card_free_after
+    check(card_free_after >= card_free - RUNTIME_FREE_SLACK,
+          f"data: the card has {card_free_after} bytes free after the "
+          f"phase, {card_free} before (after each part: {free_by_part})")
+    segments = segments_left(session, pids)
+    check(not segments, f"data: segments left in /dev/shm: {segments[:8]}")
+    strays = []
+    if os.path.realpath(tmp) != "/tmp":
+        strays = sorted(f for f in os.listdir("/tmp")
+                        if f.startswith(f"rtpt_{session}"))
+    check(not strays, f"data: {strays} left in /tmp")
+    wall_s = time.perf_counter() - t_phase
+    out["launches_by_part"] = {
+        "data": _add_launches(out["inference"]["launches"],
+                              out["trainer"]["launches"]),
+        "tune": tuned["launches"], "checkpoint": checkpoint["launches"]}
+    out["card_free_bytes"] = [card_free, card_free_after]
+    out["card_free_by_part"] = free_by_part
+    out["left_bytes"] = left
+    out["wall_s"] = wall_s
+    print(f"data: teardown: {left} bytes of the phase's tensors left; card "
+          f"free {card_free_after} of {card_free} before (after each part "
+          f"{free_by_part}; the checkpoint's process group and save left "
+          f"{checkpoint['process_group_held_bytes']}); no segment left; the "
+          f"phase took {wall_s:.3f} s ({card})")
+    return out, tuned, checkpoint
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4075,6 +4702,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     clustered = phase_cluster(direct, card)
     cluster_launches = clustered["launches"]
+    # Phase 18 hands its trainer loop and Tune trainable to driver-thread
+    # workers by reference, as phases 15-16 do: run it from the module.
+    torch.cuda.empty_cache()
+    data_out, tuned, checkpointed = this.phase_data(direct, tokens, trained,
+                                                    card)
+    data_parts = data_out["launches_by_part"]
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
     train_sched = trained["scheduler_launches"]
@@ -4093,6 +4726,9 @@ def main() -> int:
     print(json.dumps({"train": trained, "card": card}))
     print(json.dumps({"multislice": multislice, "card": card}))
     print(json.dumps({"cluster": clustered, "card": card}, default=str))
+    print(json.dumps({"data": data_out, "checkpoint": checkpointed,
+                      "card": card}, default=str))
+    print(json.dumps({"tune": tuned, "card": card}, default=str))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{
@@ -4106,7 +4742,9 @@ def main() -> int:
                      + trainer_launches["flash_fwd"]
                      + serve_launches["flash_fwd"]
                      + gang_launches["flash_fwd"]
-                     + cluster_launches["flash_fwd"]),
+                     + cluster_launches["flash_fwd"]
+                     + sum(part["flash_fwd"]
+                           for part in data_parts.values())),
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["flash_fwd"],
                              "mesh_training": mesh_launches["flash_fwd"],
@@ -4116,7 +4754,9 @@ def main() -> int:
                              trainer_launches["flash_fwd"],
                              "serve": serve_launches["flash_fwd"],
                              "train": gang_launches["flash_fwd"],
-                             "cluster": cluster_launches["flash_fwd"]},
+                             "cluster": cluster_launches["flash_fwd"],
+                             **{name: part["flash_fwd"]
+                                for name, part in data_parts.items()}},
         "max_abs_err": flash["max_abs_err"], "max_err": flash["max_abs_err"],
         "rel_err": flash["rel_err"], "tile_rel_err": flash["tile_rel_err"],
         "lse_err": flash["lse_err"],
@@ -4139,7 +4779,9 @@ def main() -> int:
                          + trainer_launches[f"flash_bwd_{key}"]
                          + serve_launches[f"flash_bwd_{key}"]
                          + gang_launches[f"flash_bwd_{key}"]
-                         + cluster_launches[f"flash_bwd_{key}"]),
+                         + cluster_launches[f"flash_bwd_{key}"]
+                         + sum(part[f"flash_bwd_{key}"]
+                               for part in data_parts.values())),
             "launches_by_path": {"serving": 0, "training":
                                  train_launches[f"flash_bwd_{key}"],
                                  "mesh_training":
@@ -4152,7 +4794,9 @@ def main() -> int:
                                  "serve": serve_launches[f"flash_bwd_{key}"],
                                  "train": gang_launches[f"flash_bwd_{key}"],
                                  "cluster":
-                                 cluster_launches[f"flash_bwd_{key}"]},
+                                 cluster_launches[f"flash_bwd_{key}"],
+                                 **{name: part[f"flash_bwd_{key}"]
+                                    for name, part in data_parts.items()}},
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "rel_err": k["rel_err"], "tile_rel_err": k["tile_rel_err"],
             "ms": k["ms"], "kernel_ms": k["ms"], "tflops": k["tflops"],
@@ -4180,13 +4824,15 @@ def main() -> int:
             "replaces_fn": f"{replaces.split(':')[0]}::{fn} (jitted jnp)",
             "launches": (scheduler["launches"][key] + burst_sched[key]
                          + serve_sched[key] + train_sched[key]
-                         + multislice_sched[key] + cluster_sched[key]),
+                         + multislice_sched[key] + cluster_sched[key]
+                         + sum(part[key] for part in data_parts.values())),
             "launches_by_path": {
                 "scheduler": scheduler["launches"][key],
                 "runtime_burst": burst_sched[key],
                 "serve": serve_sched[key], "train": train_sched[key],
                 "multislice": multislice_sched[key],
-                "cluster": cluster_sched[key]},
+                "cluster": cluster_sched[key],
+                **{name: part[key] for name, part in data_parts.items()}},
             "max_abs_err": 0.0, "exact": True,
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": "bytes",

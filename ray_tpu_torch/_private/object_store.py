@@ -159,15 +159,7 @@ class ShmStore:
         try:
             seg.close()
         except BufferError:
-            seg._buf = None
-            seg._mmap = None  # reader views hold their own mmap refs
-            fd = getattr(seg, "_fd", -1)
-            if fd >= 0:
-                try:
-                    os.close(fd)
-                except OSError:
-                    pass  # swallow-ok: fd already closed elsewhere
-                seg._fd = -1
+            _orphan(seg)
             self._zombies.append(seg)
 
     def _drain_zombies(self) -> None:  # lock-held: _lock
@@ -397,6 +389,22 @@ class ShmStore:
             }
 
 
+def _orphan(seg: shared_memory.SharedMemory) -> None:
+    """Drop our references to a mapping that reader views still alias:
+    the last view unmaps it, and ``SharedMemory.__del__`` has nothing
+    left to close (a close there would raise BufferError as an
+    unraisable warning)."""
+    seg._buf = None
+    seg._mmap = None  # reader views hold their own mmap refs
+    fd = getattr(seg, "_fd", -1)
+    if fd >= 0:
+        try:
+            os.close(fd)
+        except OSError:
+            pass  # swallow-ok: fd already closed elsewhere
+        seg._fd = -1
+
+
 class ShmClient:
     """Reader-side attach/read for any process on the node."""
 
@@ -425,10 +433,19 @@ class ShmClient:
             for seg in self._attached.values():
                 try:
                     seg.close()
-                except (BufferError, Exception):
-                    pass    # exported views may pin the mapping; the
-                            # kernel reclaims it with the process
+                except BufferError:
+                    _orphan(seg)    # exported views pin the mapping
+                except Exception:
+                    pass    # the kernel reclaims it with the process
             self._attached.clear()
+
+    def __del__(self):
+        # a client dropped unclosed (a driver-thread actor's, when the
+        # actor goes) would let each segment's own __del__ raise
+        try:
+            self.close()
+        except Exception:
+            pass    # interpreter teardown: the kernel reclaims the maps
 
 
 class MemoryStore:

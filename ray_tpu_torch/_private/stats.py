@@ -123,6 +123,37 @@ def install_runtime_metrics() -> None:
         "Streaming serve requests: mean time from request parse to "
         "the first item on the wire, over the recent sample window "
         "(docs/serve.md §Ingress; 0 = no streamed load)")
+    data_queued = m.Gauge(
+        "ray_tpu_data_queued_bytes",
+        "Streaming data plane: bytes parked at each live pipeline "
+        "stage (queued + in-flight inputs + completed-unconsumed "
+        "outputs; docs/data_pipeline.md). Bounded by the per-stage "
+        "budget; series vanish when the pipeline completes",
+        tag_keys=("stage",))
+    data_blocks = m.Gauge(
+        "ray_tpu_data_blocks",
+        "Streaming data plane: cumulative block counts — produced "
+        "(read/map outputs), consumed (handed to the consumer), "
+        "reconstructed (re-driven after a map-worker death)",
+        tag_keys=("state",))
+    data_bp = m.Gauge(
+        "ray_tpu_data_backpressure_events",
+        "Map/read launches deferred because a downstream stage sat "
+        "at its byte budget (typed BackpressureError signals)")
+    data_zero_copy = m.Gauge(
+        "ray_tpu_data_zero_copy_blocks",
+        "Blocks handed downstream on the shm/fastframe zero-copy "
+        "path (stored over the inline threshold; consumers mmap "
+        "instead of re-pickling)")
+    data_locality = m.Gauge(
+        "ray_tpu_data_locality",
+        "Actor-pool block routing decisions: hits dispatched to a "
+        "worker co-located with the block's bytes, misses crossed "
+        "nodes", tag_keys=("kind",))
+    data_starvation = m.Gauge(
+        "ray_tpu_data_trainer_starvation",
+        "Fraction of the last run_with_data wall time the trainer "
+        "spent waiting on the data iterator (~0 = compute-bound)")
 
     def collect():
         from ray_tpu_torch._private.worker import try_global_worker
@@ -245,6 +276,25 @@ def install_runtime_metrics() -> None:
             except Exception:  # noqa: BLE001
                 # controller mid-shutdown: skip its series this scrape
                 pass
+        # streaming data plane (docs/data_pipeline.md §Observability):
+        # per-stage queued bytes come from live executors only — the
+        # clear()+re-set makes completed pipelines' series vanish, so
+        # every gauge returns to baseline once a run finishes.
+        from ray_tpu_torch._private import data_stats
+        data_queued.clear()
+        for stage, nbytes in data_stats.queued_bytes_by_stage().items():
+            data_queued.set(nbytes, tags={"stage": stage})
+        dsnap = data_stats.snapshot()
+        for state in ("produced", "consumed", "reconstructed"):
+            data_blocks.set(dsnap.get("blocks_" + state, 0),
+                            tags={"state": state})
+        data_bp.set(dsnap.get("backpressure_events", 0))
+        data_zero_copy.set(dsnap.get("zero_copy_blocks", 0))
+        data_locality.set(dsnap.get("locality_hits", 0),
+                          tags={"kind": "hits"})
+        data_locality.set(dsnap.get("locality_misses", 0),
+                          tags={"kind": "misses"})
+        data_starvation.set(data_stats.starvation())
 
     m.register_collector(collect)
 

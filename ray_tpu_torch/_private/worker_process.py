@@ -370,6 +370,12 @@ class ExecutionEnv:
             return pos, dict(zip(kwargs_keys, kw_vals))
         return values, {}
 
+    @staticmethod
+    def _get_spilled_arg(oid: bytes):
+        from ray_tpu_torch._private.object_ref import ObjectRef
+        from ray_tpu_torch._private.worker import global_worker
+        return global_worker().get([ObjectRef(ObjectID(oid))])[0]
+
     def _resolve_arg(self, desc: tuple):
         kind = desc[0]
         if kind == "v":  # inline serialized value
@@ -377,7 +383,14 @@ class ExecutionEnv:
             return value
         if kind == "shm":  # zero-copy read from the node store
             _oid, segment_name, size = desc[1], desc[2], desc[3]
-            blob = self.shm_client.read(segment_name, size)
+            try:
+                blob = self.shm_client.read(segment_name, size)
+            except FileNotFoundError:
+                # The store spilled the object after this descriptor was
+                # made (it spills its oldest objects, which a queued
+                # task's arguments often are): get it through the owner,
+                # whose store restores it.
+                return self._get_spilled_arg(_oid)
             value, _refs = self.serde.deserialize_from_blob(blob)
             return value
         if kind == "dev":  # device object, on a thread of its owner's

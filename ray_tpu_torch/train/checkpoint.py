@@ -3,16 +3,19 @@
 Reference: ``ray.train.Checkpoint`` (directory abstraction uploaded via
 pyarrow.fs) [UNVERIFIED — mount empty, SURVEY.md §0]. The port's copy
 of ``ray_tpu/train/checkpoint.py``: ``save_pytree``/``load_pytree``
-flatten with ``torch.utils._pytree`` (dicts, lists, tuples, None) where
-the reference uses ``jax.tree``, write every leaf to CPU numpy as npz
-and the structure as a pickled string (``treespec_dumps``), off the
-step path. A ``torch.bfloat16`` leaf, which has no numpy dtype, is
-stored bit for bit as its 16-bit view and comes back as a CPU bf16
-tensor; every other leaf comes back as numpy, as in the reference.
+flatten a tree of dicts, lists and tuples (namedtuples too) where the
+reference uses ``jax.tree``; anything else, None included, is a leaf.
+Every leaf is written to CPU numpy as npz and the structure pickled, off
+the step path, without importing torch, so that saving or loading numpy
+state (a Tune trial in a process worker) does not pay torch's import. A
+``torch.bfloat16`` leaf, which has no numpy dtype, is stored bit for bit
+as its 16-bit view and comes back as a CPU bf16 tensor (the one case
+that loads torch); every other leaf comes back as numpy, as in the
+reference.
 
-Torch's pytree keeps a dict's insertion order where ``jax.tree`` sorts
-its keys, so the leaf files of the two packages are not in the same
-order; neither package reads the other's files.
+The walk keeps a dict's insertion order where ``jax.tree`` sorts its
+keys, so the leaf files of the two packages are not in the same order;
+neither package reads the other's files.
 """
 
 from __future__ import annotations
@@ -86,19 +89,51 @@ def _host_leaf(leaf: Any):
     return np.asarray(leaf), False
 
 
+class _Leaf:
+    """Where leaf ``i`` sits in a stored structure."""
+
+    def __init__(self, i: int):
+        self.i = i
+
+
+def _rebuild(node: Any, children: list) -> Any:
+    if hasattr(node, "_fields"):                  # a namedtuple
+        return type(node)(*children)
+    return type(node)(children)
+
+
+def _flatten(tree: Any, leaves: list) -> Any:
+    """``tree`` with every leaf replaced by a ``_Leaf`` marker, appended
+    to ``leaves`` in order. Dicts, lists and tuples are nodes; anything
+    else is a leaf."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [_flatten(v, leaves) for v in tree])
+    leaves.append(tree)
+    return _Leaf(len(leaves) - 1)
+
+
+def _unflatten(tree: Any, leaves: list) -> Any:
+    if isinstance(tree, _Leaf):
+        return leaves[tree.i]
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, leaves) for k, v in tree.items()}
+    return _rebuild(tree, [_unflatten(v, leaves) for v in tree])
+
+
 def save_pytree(tree: Any, directory: str, name: str = "state") -> None:
     """Write a pytree of tensors, arrays and scalars: leaves as npz,
     structure pickled. Both files land crash-atomically
     (``_private/durable``): a crash mid-write leaves the previous
     checkpoint intact instead of tearing the only copy."""
-    from torch.utils import _pytree as pytree
-
     from ray_tpu_torch._private import durable
     os.makedirs(directory, exist_ok=True)
-    leaves, spec = pytree.tree_flatten(tree)
+    leaves: list = []
+    structure = _flatten(tree, leaves)
     arrays, bf16, none = {}, [], []
     for i, leaf in enumerate(leaves):
-        if leaf is None:     # a leaf to torch's pytree, a node to jax's
+        if leaf is None:     # a leaf here, a node to jax's pytree
             none.append(i)
             continue
         arrays[f"leaf_{i}"], is_bf16 = _host_leaf(leaf)
@@ -107,20 +142,19 @@ def save_pytree(tree: Any, directory: str, name: str = "state") -> None:
     durable.atomic_savez(os.path.join(directory, f"{name}.npz"), arrays)
     durable.atomic_pickle(
         os.path.join(directory, f"{name}.treedef.pkl"),
-        {"treespec": pytree.treespec_dumps(spec), "num_leaves": len(leaves),
+        {"structure": structure, "num_leaves": len(leaves),
          "bfloat16": bf16, "none": none})
 
 
 def load_pytree(directory: str, name: str = "state") -> Any:
-    import torch
-    from torch.utils import _pytree as pytree
     with open(os.path.join(directory, f"{name}.treedef.pkl"), "rb") as f:
-        structure = pickle.load(f)
-    none = set(structure["none"])
+        meta = pickle.load(f)
+    none = set(meta["none"])
     with np.load(os.path.join(directory, f"{name}.npz")) as data:
         leaves = [None if i in none else data[f"leaf_{i}"]
-                  for i in range(structure["num_leaves"])]
-    for i in structure["bfloat16"]:
-        leaves[i] = torch.from_numpy(leaves[i]).view(torch.bfloat16)
-    return pytree.tree_unflatten(
-        leaves, pytree.treespec_loads(structure["treespec"]))
+                  for i in range(meta["num_leaves"])]
+    if meta["bfloat16"]:
+        import torch
+        for i in meta["bfloat16"]:
+            leaves[i] = torch.from_numpy(leaves[i]).view(torch.bfloat16)
+    return _unflatten(meta["structure"], leaves)

@@ -8,8 +8,7 @@ first (a CUDA tensor cannot become numpy where it lies), and a bf16
 one, which has no numpy dtype, stays a CPU bf16 tensor, as
 ``load_pytree`` gives it back. ``iter_train_batches`` is the one-call
 path from a Dataset to a prefetched numpy-batch iterator sized by the
-``data_prefetch_batches`` knob; it needs ``ray_tpu_torch.data``, which
-the port does not have yet.
+``data_prefetch_batches`` knob.
 """
 
 from __future__ import annotations

@@ -30,8 +30,8 @@ numerically (the tier-1 acceptance test).
 The port's copy of ``ray_tpu/train/multislice.py``. With
 ``resources_per_worker={"GPU": ...}`` the ranks run on threads of the
 driver and ``grad_fn`` may use the card, as long as it returns numpy.
-``run_with_data`` needs ``ray_tpu_torch.data``, which the port does not
-have yet: it raises ``ImportError`` until then.
+``run_with_data`` takes its prefetching iterator and its starvation
+gauge from ``ray_tpu_torch.data``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``ray_tpu_torch`` nor ``chip_smoke.py``
-imports JAX or anything of ``ray_tpu``, and its entry points run on the
+imports JAX, orbax or anything of ``ray_tpu``, and its entry points run on the
 card unless the caller asks for the CPU."""
 
 import ast
@@ -30,7 +30,7 @@ def _few_threads():
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root.startswith("jax") or root == "ray_tpu"
+    return root.startswith("jax") or root in ("ray_tpu", "orbax")
 
 
 def _imported_modules(tree):
@@ -273,6 +273,31 @@ def test_sources_cover_multinode():
     assert not missing, missing
 
 
+DATA_TUNE_MODULES = (
+    "_private/data_stats", "data/__init__", "data/block", "data/context",
+    "data/dataset", "data/_internal/__init__", "data/_internal/executor",
+    "data/_internal/plan", "data/_internal/prefetch", "tune/__init__",
+    "tune/schedulers", "tune/search", "tune/tuner",
+    "train/array_checkpoint")
+
+
+def test_sources_cover_data_tune_and_array_checkpoint():
+    """The scan above reaches every module of Data, Tune and the sharded
+    checkpoints."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in DATA_TUNE_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+
+
+def test_import_scan_refuses_orbax():
+    """The sharded checkpoints use ``torch.distributed.checkpoint``: the
+    scan flags the reference's orbax import."""
+    tree = ast.parse("import orbax.checkpoint as ocp\n")
+    assert [m for m in _imported_modules(tree) if _forbidden(m)] \
+        == ["orbax.checkpoint"]
+
+
 @pytest.mark.parametrize("module", ["ray_tpu_torch",
                                     "ray_tpu_torch._private.worker_process",
                                     "ray_tpu_torch.serve",
@@ -281,7 +306,10 @@ def test_sources_cover_multinode():
                                     "ray_tpu_torch._private.gcs_server",
                                     "ray_tpu_torch._private.raylet_server",
                                     "ray_tpu_torch._private.client_server",
-                                    "ray_tpu_torch.cluster_utils"])
+                                    "ray_tpu_torch.cluster_utils",
+                                    "ray_tpu_torch.data",
+                                    "ray_tpu_torch.tune",
+                                    "ray_tpu_torch._private.data_stats"])
 def test_runtime_imports_load_neither_torch_nor_jax(module):
     """A process worker imports ``worker_process`` (and so the package),
     and a replica in one imports Serve, a gang worker Train and a slice
@@ -289,7 +317,8 @@ def test_runtime_imports_load_neither_torch_nor_jax(module):
     processes start from their modules, and a driver imports
     ``cluster_utils``: in a fresh interpreter none of them loads torch
     or JAX (a GCS or raylet that imported torch would pay seconds at
-    every start)."""
+    every start). A CPU map task or a Tune trial in a process worker
+    imports Data or Tune, and must not pay torch's import either."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
             "if m in sys.modules))")

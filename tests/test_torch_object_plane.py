@@ -465,3 +465,43 @@ def test_seal_kill_leaves_survivors_consistent(mesh, tmp_path):
     view = late.store.get_local(oid)
     assert bytes(view) == payload
     del view
+
+
+@pytest.mark.parametrize("how", ["close", "dropped"])
+def test_shm_client_close_with_live_views_raises_nothing_later(how):
+    """A reader's ``ShmClient`` closed, or dropped unclosed (a
+    driver-thread actor's, when the actor goes), while a view of a
+    segment is alive (an arrow block read zero-copy) orphans the
+    mapping: the view keeps its bytes, and collecting the segment object
+    raises nothing. The JAX package's client swallows the close's
+    BufferError but keeps the mapping, and a dropped one closes nothing,
+    so the segment's ``__del__`` raises it as an unraisable warning
+    (ROADMAP C)."""
+    import gc
+
+    import numpy as np
+    from multiprocessing import shared_memory
+
+    from ray_tpu_torch._private.object_store import ShmClient
+
+    name = f"rtpt_closetest_{os.getpid()}"
+    seg = shared_memory.SharedMemory(name=name, create=True, size=1024)
+    seen = []
+    old_hook = sys.unraisablehook
+    sys.unraisablehook = lambda u: seen.append(repr(u.exc_value))
+    try:
+        seg.buf[:4] = bytes([1, 2, 3, 4])
+        client = ShmClient("closetest")
+        view = np.frombuffer(client.read(name, 1024), dtype=np.uint8)
+        if how == "close":
+            client.close()
+        del client
+        gc.collect()
+        assert view[:4].tolist() == [1, 2, 3, 4]
+        del view
+        gc.collect()
+    finally:
+        sys.unraisablehook = old_hook
+        seg.close()
+        seg.unlink()
+    assert seen == []

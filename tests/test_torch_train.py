@@ -1,9 +1,8 @@
 """The port's Train core (``ray_tpu_torch/train``) against the JAX
 package's, one runtime at a time in this process: the cases of
-``tests/test_train.py`` that need no ``data``
-(``test_dataset_ingest_sharding`` waits for ``ray_tpu_torch.data``), run
-under both packages and held to the same values (the two checkpoint
-cases are in ``test_torch_train_checkpoint.py``);
+``tests/test_train.py``, run under both packages and held to the same
+values (the two checkpoint cases are in
+``test_torch_train_checkpoint.py``);
 ``save_pytree``/``load_pytree`` on one nested tree under both; and a
 gang of two ``{"GPU": 0.5}`` workers, which run on threads of the driver
 in one process and still each see their own session."""
@@ -87,6 +86,35 @@ def test_collective_allreduce_between_workers():
 
     ref, got = _run(scenario)
     assert got["sum"] == 3.0 and got == ref
+
+
+def test_dataset_ingest_sharding():
+    """A Dataset handed to the trainer is split into one contiguous shard
+    per worker; each worker reads its own through ``get_dataset_shard``."""
+    def scenario(rt):
+        train = _train(rt)
+        rdata = __import__(f"{rt.__name__}.data", fromlist=["data"])
+
+        def loop(config):
+            ctx = train.get_context()
+            shard = train.get_dataset_shard("train")
+            total = sum(int(np.sum(b["id"]))
+                        for b in shard.iter_batches(batch_size=8))
+            train.report({"total": total, "n": shard.count(),
+                          "rank": ctx.get_rank()})
+
+        ds = rdata.range(64, parallelism=4)
+        res = train.DataParallelTrainer(
+            loop, scaling_config=train.ScalingConfig(num_workers=2),
+            datasets={"train": ds}).fit()
+        assert res.error is None
+        return res.metrics
+
+    ref, got = _run(scenario)
+    assert got["n"] == 32 == ref["n"]
+    # which rows a shard holds follows which read finished first
+    assert got["rank"] == ref["rank"]
+    assert 0 < got["total"] < sum(range(64))
 
 
 def _regression_data():
