@@ -239,15 +239,47 @@ Phases, each fatal on failure:
    phase's tensors gone and the card's free bytes back to the phase's
    start (within RUNTIME_FREE_SLACK; read after each part too), no segment
    of the run in ``/dev/shm`` and nothing of it in ``/tmp``.
+19. DAGs, workflows and tracing, then the cluster operations
+   (``ray_tpu_torch.dag``, ``workflow``, ``util.tracing``, ``autoscaler``,
+   ``dashboard``, ``job_submission``, the CLI), on the flagship from seed
+   0. (a) Phase 6's two batches through ``compile_to_jit`` of prep ->
+   forward -> next-token loss: logits bit for bit the direct forward's,
+   the loss equal, answers bit for bit phase 6's, 8 flash launches a
+   call; median seconds a call beside the direct call. (b) After
+   ``init()``: a compiled DAG of a CPU process-worker actor cutting phase
+   6's batches (it holds the requests: phase 6 draws them on the card)
+   and a ``num_gpus=1`` ``Replica`` answering them: ``is_fast``, answers
+   bit for bit phase 6's, 8 launches an execute; the median execute beside
+   the same two calls chained by ``.remote``; a raising CPU stage's error
+   reaches the caller through the channel. (c) A workflow cut -> forward
+   (a ``num_gpus=1`` task) -> finish whose last step crashes on the first
+   run: FAILED, then ``resume`` runs the last step alone (a counter file
+   shows each step's runs) and gives the direct forward's next tokens and
+   last logits bit for bit. (d) Two of (b)'s executes under
+   ``tracing.trace``: the exported Chrome trace holds two
+   ``Replica.answer [compiled]`` spans, each with 8 ``flash_fwd_wgmma``
+   launches inside it, and ``timeline()`` both stages with ``exec_ms``.
+   (e) A ``Cluster`` whose head has no GPU and ``AutoscalerV2`` with a
+   logical ``{"CPU": 1, "GPU": 1}`` type: a remote GPU type refused; a
+   pending ``num_gpus=1`` Replica launches one node and answers a batch
+   bit for bit; killed, its node is terminated past the idle timeout, and
+   ``ray_tpu_autoscaler_instances`` on the dashboard's ``/metrics`` shows
+   RUNNING then TERMINATED. (f) In a ``TMPDIR`` of its own: ``python -m
+   ray_tpu_torch start --head``, ``job submit`` of an entrypoint that
+   joins, runs a CPU task and the flash forward at FLAGSHIP_ATTN on the
+   card against its plain version (SUCCEEDED, its log line parsed), then
+   ``status``, ``list actors`` and ``timeline`` with a driver of this
+   process joined, and ``stop``: one process terminated, no segment left.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
 ``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}``,
-``{"data": ...}``, ``{"tune": ...}`` and ``{"kernels": [...]}`` lines (each
-kernel's ``launches_by_path`` has the ``data``, ``tune`` and
-``checkpoint`` paths of phase 18),
+``{"data": ...}``, ``{"tune": ...}``, ``{"dag_workflow_ops": ...}`` and
+``{"kernels": [...]}`` lines (each kernel's ``launches_by_path`` has the
+``data``, ``tune`` and ``checkpoint`` paths of phase 18 and the ``dag``,
+``workflow``, ``autoscaler`` and ``job`` paths of phase 19),
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -261,6 +293,7 @@ import importlib
 import json
 import math
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -1937,9 +1970,12 @@ class Replica:
     with the greedy next token and the head of the last-position logits
     (the JAX package's serving test returns that head)."""
 
-    def __init__(self, cfg, params, batch, seq):
+    def __init__(self, cfg=None, params=None, batch=None, seq=None):
+        if params is None:      # a phase-19 actor: the phase's flagship
+            cfg, params = flagship_config(), DAG_CONTEXT["params"]
         self.cfg, self.params = cfg, params
-        warm = torch.zeros((batch, seq), dtype=torch.long, device=DEVICE)
+        warm = torch.zeros((batch or BATCH, seq or SEQ), dtype=torch.long,
+                           device=DEVICE)
         with torch.inference_mode():
             tfm.forward(params, warm, cfg)
         torch.cuda.synchronize()
@@ -1954,6 +1990,12 @@ class Replica:
         self.last_logits = logits
         return [{"next_token": t, "logits_head": hd}
                 for t, hd in zip(next_tokens, heads)]
+
+    def answer(self, rows):
+        """Phase 19's actor method: a batch of token rows from a CPU stage
+        (int64 numpy) answered on the card."""
+        return self(torch.from_numpy(np.require(rows, requirements="W"))
+                    .to(DEVICE))
 
 
 def phase_serving():
@@ -4654,6 +4696,664 @@ def phase_data(direct, tokens, trained, card):
     return out, tuned, checkpoint
 
 
+# -- phase 19: DAGs, workflows, tracing, the autoscaler and the CLI ------
+
+DAG_TIMED = 8                 # (a), (b): calls timed on each side
+DAG_TRACED = 2                # (d): compiled executes under the trace
+DAG_WAIT_S = 120.0
+AUTOSCALE_IDLE_S = 1.0        # (e): the scaler's idle timeout
+DAG_CONTEXT = {}              # the phase's flagship, read by its actors and
+                              # its GPU workflow step on driver threads
+JOB_SRC = r'''
+import importlib, json, os, sys
+import torch
+import ray_tpu_torch as rt
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+device, (b, s, n, h) = sys.argv[1], json.loads(sys.argv[2])
+rt.init(address=os.environ["RAY_TPU_ADDRESS"], num_cpus=1,
+        max_process_workers=1)
+pid = rt.get(rt.remote(os.getpid).remote(), timeout=120)
+g = torch.Generator(device).manual_seed(0)
+q, k, v = (torch.randn(b, s, n, h, device=device, dtype=torch.bfloat16,
+                       generator=g) for _ in range(3))
+before = fa.launches
+with torch.inference_mode():
+    o = fa.flash_attention(q, k, v, causal=True)
+    launches = fa.launches - before
+    ref, _ = fa.flash_attention_plain(q, k, v, causal=True)
+diff = o.float() - ref.float()
+print("job-flash", json.dumps({
+    "task_pid": pid, "job_pid": os.getpid(), "launches": launches,
+    "max_abs_err": diff.abs().max().item(),
+    "rel_err": (diff.norm() / ref.float().norm()).item(),
+    "resources": rt.cluster_resources()}), flush=True)
+rt.shutdown()
+'''
+
+
+class PathLaunches:
+    """Launches of a phase-19 path, summed over the ``with`` blocks that
+    run it; the comparisons around them (a direct forward, the chained
+    ``.remote`` calls) stay outside."""
+
+    def __init__(self):
+        self.total = _launch_delta(_counts())
+
+    def __enter__(self):
+        self._before = _counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.total = _add_launches(self.total, _launch_delta(self._before))
+        return False
+
+
+def _answers_of(logits):
+    """What phase 6's Replica returns for a batch's logits."""
+    last = logits[:, -1]
+    return [{"next_token": t, "logits_head": hd}
+            for t, hd in zip(last.argmax(dim=-1).tolist(),
+                             last[:, :4].tolist())]
+
+
+def dag_jit(direct, card):
+    """(a) Phase 6's requests through ``compile_to_jit`` of a pure DAG:
+    prep -> the flagship's forward -> the next-token loss."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, compile_to_jit
+    cfg, params = flagship_config(), DAG_CONTEXT["params"]
+
+    @rt.remote
+    def prep(tokens):
+        return tokens.to(DEVICE, torch.long)
+
+    @rt.remote
+    def logits_of(tokens):
+        return tfm.forward(params, tokens, cfg)
+
+    @rt.remote
+    def loss_of(logits, tokens):
+        return next_token_loss(logits, tokens)
+
+    with InputNode() as inp:
+        tokens = prep.bind(inp)
+        logits = logits_of.bind(tokens)
+        dag = MultiOutputNode([logits, loss_of.bind(logits, tokens)])
+    composed = compile_to_jit(dag)
+    requests = direct["requests"]
+    batches = [requests[i * BATCH:(i + 1) * BATCH]
+               for i in range(N_REQUESTS // BATCH)]
+    path = PathLaunches()
+    answers, per_call = [], []
+    with torch.inference_mode():
+        for batch in batches:
+            counts = fa.launches
+            with path:
+                got_logits, got_loss = composed(batch)
+                torch.cuda.synchronize()
+            per_call.append(fa.launches - counts)
+            want = tfm.forward(params, batch, cfg)
+            check(torch.equal(got_logits, want),
+                  "dag (a): compile_to_jit's logits differ from the direct "
+                  "forward's")
+            check(torch.equal(got_loss, next_token_loss(want, batch)),
+                  "dag (a): the DAG's loss differs from the direct one")
+            answers += _answers_of(got_logits)
+        check_answers(answers, direct["answers"],
+                      direct["logits_gap_bf16_fp32"], "dag (a)",
+                      bit_equal=True)
+        check(per_call == [cfg.n_layers] * len(batches),
+              f"dag (a): flash launches a call {per_call}, expected "
+              f"{cfg.n_layers}")
+        dag_s, direct_s = [], []
+        for i in range(DAG_TIMED):
+            batch = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            with path:
+                t0 = time.perf_counter()
+                composed(batch)
+                torch.cuda.synchronize()
+                dag_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            next_token_loss(tfm.forward(params, batch, cfg), batch)
+            torch.cuda.synchronize()
+            direct_s.append(time.perf_counter() - t0)
+    launches = path.total
+    check(launches["flash_fwd"] == cfg.n_layers * (len(batches) + DAG_TIMED),
+          f"dag (a): launches {launches}")
+    res = {"calls": len(batches) + DAG_TIMED,
+           "launches_per_call": per_call, "bit_equal_direct": True,
+           "dag_s": float(np.median(dag_s)),
+           "direct_s": float(np.median(direct_s)), "launches": launches}
+    print(f"dag (a) ({card}): compile_to_jit of prep -> forward -> loss, "
+          f"logits bit for bit the direct forward's and phase 6's answers; "
+          f"{per_call} flash launches a call; median of {DAG_TIMED}: "
+          f"{res['dag_s']:.6f} s a call against {res['direct_s']:.6f} s "
+          f"for the direct forward and loss")
+    return res
+
+
+def dag_compiled(rt, direct, card):
+    """(b) A compiled actor DAG: a CPU process-worker actor cuts phase 6's
+    batches, a ``num_gpus=1`` Replica answers them on the card."""
+    from ray_tpu_torch.dag import InputNode
+    cfg = flagship_config()
+    rows = direct["requests"].cpu().numpy()
+    n_batches = N_REQUESTS // BATCH
+
+    class Batches:
+        """Defined here, so that it travels by value: its process worker
+        loads no torch."""
+
+        def __init__(self, rows):
+            self.rows = rows
+
+        def batch(self, i):
+            return self.rows[i * BATCH:(i + 1) * BATCH]
+
+        def boom(self, i):
+            raise ValueError(f"stage exploded on batch {i}")
+
+        def pid(self):
+            return os.getpid()
+
+    path = PathLaunches()
+    with path:              # the Replica's constructor warms the forward
+        prep = rt.remote(num_cpus=1)(Batches).remote(rows)
+        replica = rt.remote(num_gpus=1)(Replica).remote()
+        check(rt.get(prep.pid.remote(), timeout=DAG_WAIT_S) != os.getpid(),
+              "dag (b): the CPU stage runs in the driver, not a process "
+              "worker")
+        with InputNode() as inp:
+            dag = replica.answer.bind(prep.batch.bind(inp))
+        compiled = dag.experimental_compile()
+    check(compiled.is_fast, "dag (b): the compiled DAG took the replay path")
+    answers, per_execute = [], []
+    for i in range(n_batches):
+        counts = fa.launches
+        with path:
+            answers += rt.get(compiled.execute(i), timeout=DAG_WAIT_S)
+        per_execute.append(fa.launches - counts)
+    check_answers(answers, direct["answers"], direct["logits_gap_bf16_fp32"],
+                  "dag (b)", bit_equal=True)
+    check(per_execute == [cfg.n_layers] * n_batches,
+          f"dag (b): flash launches an execute {per_execute}")
+    compiled_s, chained_s = [], []
+    for i in range(DAG_TIMED):
+        b = i % n_batches
+        with path:
+            t0 = time.perf_counter()
+            got_c = rt.get(compiled.execute(b), timeout=DAG_WAIT_S)
+            compiled_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got_u = rt.get(replica.answer.remote(prep.batch.remote(b)),
+                       timeout=DAG_WAIT_S)
+        chained_s.append(time.perf_counter() - t0)
+        want = direct["answers"][b * BATCH:(b + 1) * BATCH]
+        check(got_c == want and got_u == want,
+              f"dag (b): timed answers to batch {b} differ from phase 6's")
+    with InputNode() as inp:
+        bad = replica.answer.bind(prep.boom.bind(inp))
+    failing = bad.experimental_compile()
+    check(failing.is_fast, "dag (b): the failing DAG took the replay path")
+    t0 = time.perf_counter()
+    try:
+        rt.get(failing.execute(1), timeout=DAG_WAIT_S)
+        raised = None
+    except Exception as e:          # the stage's error, through the channel
+        raised = e
+    error_s = time.perf_counter() - t0
+    check(raised is not None and "stage exploded on batch 1" in str(raised),
+          f"dag (b): the failing stage's error did not reach the caller: "
+          f"{raised!r}")
+    failing.teardown()
+    check(path.total["flash_fwd"] == cfg.n_layers * (1 + n_batches
+                                                     + DAG_TIMED),
+          f"dag (b): launches {path.total} (a warm forward and "
+          f"{n_batches + DAG_TIMED} executes)")
+    res = {"is_fast": True, "executes": n_batches + DAG_TIMED,
+           "launches": path.total,
+           "launches_per_execute": per_execute, "bit_equal_direct": True,
+           "execute_s": float(np.median(compiled_s)),
+           "chained_remote_s": float(np.median(chained_s)),
+           "direct_batch_latency_s": direct["latency_s"],
+           "error_s": error_s, "error": type(raised).__name__}
+    print(f"dag (b) ({card}): CPU process-worker stage -> num_gpus=1 "
+          f"Replica, is_fast, answers bit for bit phase 6's, {per_execute} "
+          f"flash launches an execute; median of {DAG_TIMED}: execute "
+          f"{res['execute_s']:.6f} s, the two calls chained by .remote "
+          f"{res['chained_remote_s']:.6f} s (phase 6 direct "
+          f"{direct['latency_s']} s); a raising stage's "
+          f"{type(raised).__name__} reached the caller in {error_s:.3f} s")
+    return compiled, replica, prep, res
+
+
+def dag_trace(rt, compiled, direct, card):
+    """(d) Two of (b)'s executes under ``tracing.trace``."""
+    from ray_tpu_torch.util import tracing
+    cfg = flagship_config()
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    path = PathLaunches()
+    t0 = time.perf_counter()
+    with path, tracing.trace(logdir):
+        got = [rt.get(compiled.execute(i % 2), timeout=DAG_WAIT_S)
+               for i in range(DAG_TRACED)]
+    traced_s = time.perf_counter() - t0
+    for i, answers in enumerate(got):
+        b = i % 2
+        check(answers == direct["answers"][b * BATCH:(b + 1) * BATCH],
+              f"dag (d): traced execute {i}'s answers differ from phase 6's")
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"dag (d): trace files {files}")
+    trace_file = os.path.join(logdir, files[0])
+    trace_bytes = os.path.getsize(trace_file)
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(logdir, ignore_errors=True)
+    span_name = "Replica.answer [compiled]"
+    spans = sorted((e for e in events if e.get("name") == span_name
+                    and e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation"),
+                   key=lambda e: e["ts"])
+    check(len(spans) == DAG_TRACED,
+          f"dag (d): {len(spans)} spans named {span_name!r}, expected "
+          f"{DAG_TRACED}")
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "flash_fwd_wgmma" in e.get("name", "")]
+    corr = {e.get("args", {}).get("correlation") for e in kernels}
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+             and e.get("args", {}).get("correlation") in corr]
+    in_span = [sum(1 for c in calls
+                   if s["ts"] <= c["ts"] <= s["ts"] + s["dur"])
+               for s in spans]
+    check(in_span == [cfg.n_layers] * DAG_TRACED,
+          f"dag (d): flash_fwd_wgmma launches inside each stage span "
+          f"{in_span} ({len(kernels)} kernels in the trace), expected "
+          f"{cfg.n_layers}")
+    timeline = tracing.timeline()
+    stage_events = {}
+    for e in timeline:
+        if e.get("name", "").endswith("[compiled]") \
+                and "exec_ms" in e.get("args", {}):
+            stage_events.setdefault(e["name"], []).append(
+                e["args"]["exec_ms"])
+    check({"Batches.batch [compiled]", span_name} <= set(stage_events),
+          f"dag (d): the timeline's compiled stages {sorted(stage_events)}")
+    res = {"spans": len(spans), "flash_in_span": in_span,
+           "launches": path.total,
+           "flash_kernels": len(kernels), "trace_bytes": trace_bytes,
+           "traced_s": traced_s,
+           "span_ms": [s["dur"] / 1e3 for s in spans],
+           "timeline_exec_ms": {k: float(np.median(v))
+                                for k, v in stage_events.items()}}
+    print(f"dag (d) ({card}): {DAG_TRACED} executes traced in "
+          f"{traced_s:.3f} s ({trace_bytes} bytes of trace): spans "
+          f"{span_name!r} of {res['span_ms']} ms, flash_fwd_wgmma launched "
+          f"{in_span} times inside them; the timeline's stages (median "
+          f"exec_ms) {res['timeline_exec_ms']}")
+    return res
+
+
+def p19_forward_step(rows, counter):
+    """(c)'s middle step, a ``num_gpus=1`` task on a driver thread: the
+    flagship's forward on a batch, counted in ``counter``."""
+    with open(counter, "a") as f:
+        f.write("forward\n")
+    tokens = torch.from_numpy(np.require(rows, requirements="W")).to(DEVICE)
+    with torch.inference_mode():
+        logits = tfm.forward(DAG_CONTEXT["params"], tokens, flagship_config())
+    last = logits[:, -1]
+    return {"next_token": last.argmax(dim=-1).cpu().numpy(),
+            "last_logits": last.float().cpu().numpy()}
+
+
+def dag_workflow(rt, direct, card):
+    """(c) A three-step workflow whose middle step runs the flagship on
+    the card; the last step crashes on the first run."""
+    from ray_tpu_torch import workflow
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    counter = os.path.join(scratch, "steps")
+    flag = os.path.join(scratch, "let_the_last_step_pass")
+    rows = direct["requests"].cpu().numpy()
+
+    def cut(rows, i, counter):
+        with open(counter, "a") as f:
+            f.write("cut\n")
+        return rows[i * BATCH:(i + 1) * BATCH]
+
+    def finish(out, counter, flag):
+        with open(counter, "a") as f:
+            f.write("finish\n")
+        if not os.path.exists(flag):
+            raise RuntimeError("injected crash in the last step")
+        return {"next_token": out["next_token"].tolist(),
+                "last_logits": out["last_logits"]}
+
+    cut_step = rt.remote(num_cpus=1)(cut)
+    forward_step = rt.remote(num_gpus=1)(p19_forward_step)
+    finish_step = rt.remote(num_cpus=1)(finish)
+    dag = finish_step.bind(
+        forward_step.bind(cut_step.bind(rows, 0, counter), counter),
+        counter, flag)
+    storage = os.path.join(scratch, "store")
+    path = PathLaunches()
+    t0 = time.perf_counter()
+    try:
+        with path:
+            workflow.run(dag, workflow_id="p19", storage=storage)
+        crashed = None
+    except Exception as e:
+        crashed = e
+    first_s = time.perf_counter() - t0
+    check(crashed is not None and "injected crash" in str(crashed),
+          f"dag (c): the first run did not fail in its last step: "
+          f"{crashed!r}")
+    check(workflow.get_status("p19", storage) == "FAILED",
+          "dag (c): the crashed workflow is not FAILED")
+    with open(counter) as f:
+        first = f.read().split()
+    check(first == ["cut", "forward", "finish"],
+          f"dag (c): steps of the first run {first}")
+    open(flag, "w").close()
+    t0 = time.perf_counter()
+    with path:
+        out = workflow.resume("p19", storage)
+    resume_s = time.perf_counter() - t0
+    with open(counter) as f:
+        steps = f.read().split()
+    check(steps == ["cut", "forward", "finish", "finish"],
+          f"dag (c): the resume ran {steps[3:]}, expected the last step "
+          f"alone")
+    check(workflow.get_status("p19", storage) == "SUCCEEDED",
+          "dag (c): the resumed workflow is not SUCCEEDED")
+    with torch.inference_mode():
+        want = tfm.forward(DAG_CONTEXT["params"], direct["requests"][:BATCH],
+                           flagship_config())[:, -1]
+    want_logits = want.float().cpu()
+    check(torch.equal(want_logits, direct["last_logits"]),
+          "dag (c): the direct forward's last logits differ from phase 6's")
+    check(np.array_equal(out["last_logits"], want_logits.numpy())
+          and out["next_token"] == want.argmax(dim=-1).tolist(),
+          "dag (c): the resumed result differs from a direct run's")
+    launches = path.total
+    check(launches["flash_fwd"] == flagship_config().n_layers,
+          f"dag (c): launches {launches}")
+    shutil.rmtree(scratch, ignore_errors=True)
+    res = {"steps_first_run": first, "steps_after_resume": steps,
+           "forward_runs": steps.count("forward"),
+           "first_run_s": first_s, "resume_s": resume_s,
+           "bit_equal_direct": True, "launches": launches}
+    print(f"dag (c) ({card}): workflow cut -> forward (num_gpus=1) -> "
+          f"finish; the first run crashed in its last step after "
+          f"{first_s:.3f} s, the resume ran the last step alone in "
+          f"{resume_s:.3f} s; the forward ran {steps.count('forward')} "
+          f"time(s); the result bit for bit a direct run's; launches "
+          f"{launches}")
+    return res
+
+
+def phase_dag(direct, card):
+    """Phase 19 (a)-(d) on one runtime that owns the card."""
+    import ray_tpu_torch as rt
+    DAG_CONTEXT["params"] = tfm.init_params(flagship_config(), seed=SEED,
+                                            device=DEVICE)
+    torch.cuda.synchronize()
+    out = {"jit": dag_jit(direct, card)}
+    w = rt.init()
+    session, pids = w.session, set()
+    try:
+        compiled, replica, prep, out["compiled"] = dag_compiled(
+            rt, direct, card)
+        out["trace"] = dag_trace(rt, compiled, direct, card)
+        compiled.teardown()
+        rt.kill(replica)
+        rt.kill(prep)
+        segment_owners(w, pids)
+        # after the Replica is gone: the GPU step needs the card's one GPU
+        out["workflow"] = dag_workflow(rt, direct, card)
+        segment_owners(w, pids)
+    finally:
+        segment_owners(w, pids)
+        rt.shutdown()
+    segments = segments_left(session, pids)
+    check(not segments, f"dag: segments left in /dev/shm: {segments[:8]}")
+    return out
+
+
+def _metric(url, name, tags):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as r:
+        body = r.read().decode()
+    for line in body.splitlines():
+        if line.startswith(name + "{") and all(
+                f'{k}="{v}"' in line for k, v in tags.items()):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def phase_autoscale(direct, card):
+    """(e) ``AutoscalerV2`` with a logical ``{"CPU": 1, "GPU": 1}`` node
+    type under a head without GPUs."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import NodeType
+    from ray_tpu_torch.autoscaler.v2 import (AutoscalerV2, FakeCloudProvider,
+                                             InstanceState)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    cfg = flagship_config()
+    gpu_type = NodeType("gpu", {"CPU": 1, "GPU": 1}, max_workers=1)
+    cluster = Cluster(head_num_cpus=2, num_gpus=0)
+    w = cluster.worker
+    session, pids = w.session, set()
+    scaler = None
+    try:
+        check("GPU" not in rt.cluster_resources(),
+              "autoscale: the head has a GPU")
+        try:
+            AutoscalerV2(FakeCloudProvider(cluster, remote=True), [gpu_type])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "see no card" in refused,
+              f"autoscale: a remote GPU node type was not refused "
+              f"({refused!r})")
+        host, port = start_dashboard()
+        metrics = f"http://{host}:{port}/metrics"
+        gauge = "ray_tpu_autoscaler_instances"
+        scaler = AutoscalerV2(
+            FakeCloudProvider(cluster, boot_delay_s=0.05), [gpu_type],
+            idle_timeout_s=AUTOSCALE_IDLE_S, period_s=0.05,
+            upscale_delay_s=0.05, downscale_delay_s=0.2).start()
+        path = PathLaunches()
+        t0 = time.perf_counter()
+        rows = direct["requests"][:BATCH].cpu().numpy()
+        with path:
+            replica = rt.remote(num_gpus=1)(Replica).remote()
+            answers = rt.get(replica.answer.remote(rows), timeout=DAG_WAIT_S)
+        answer_s = time.perf_counter() - t0
+        check(answers == direct["answers"][:BATCH],
+              "autoscale: the Replica's answers differ from phase 6's")
+        running = [i for i in scaler.instances.all()
+                   if i.state == InstanceState.RUNNING]
+        check(len(running) == 1 and len(scaler.instances.all()) == 1,
+              f"autoscale: instances {scaler.instances.table()}")
+        _wait_until(lambda: _metric(metrics, gauge,
+                                    {"state": "RUNNING"}) == 1.0,
+                    "the RUNNING instance on /metrics", timeout=DAG_WAIT_S)
+        launched_s = time.perf_counter() - t0
+        rt.kill(replica)
+        t_kill = time.perf_counter()
+        _wait_until(lambda: _metric(metrics, gauge,
+                                    {"state": "TERMINATED"}) == 1.0,
+                    "the TERMINATED instance on /metrics",
+                    timeout=DAG_WAIT_S)
+        terminated_s = time.perf_counter() - t_kill
+        check(_metric(metrics, gauge, {"state": "RUNNING"}) == 0.0,
+              "autoscale: an instance still RUNNING on /metrics")
+        node = running[0].node_id
+        check(node not in {nid for nid, _ in
+                           w.node_group.cluster_resources.nodes()},
+              "autoscale: the terminated node is still in the cluster")
+        states = [t[2] for t in running[0].transitions]
+        launches = path.total
+        check(launches["flash_fwd"] == 2 * cfg.n_layers,
+              f"autoscale: launches {launches} (a warm forward and a "
+              f"batch)")
+        segment_owners(w, pids)
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        stop_dashboard()
+        segment_owners(w, pids)
+        cluster.shutdown()
+    segments = segments_left(session, pids)
+    check(not segments, f"autoscale: segments left: {segments[:8]}")
+    res = {"refused_remote_gpu_type": True, "answer_s": answer_s,
+           "launched_s": launched_s, "terminated_after_kill_s": terminated_s,
+           "idle_timeout_s": AUTOSCALE_IDLE_S, "transitions": states,
+           "bit_equal_direct": True, "launches": launches}
+    print(f"autoscale ({card}): a pending num_gpus=1 Replica launched one "
+          f"logical GPU node and answered a batch bit for bit phase 6's "
+          f"{answer_s:.3f} s after it was made (gauge RUNNING at "
+          f"{launched_s:.3f} s); killed, its node was TERMINATED on "
+          f"/metrics {terminated_s:.3f} s later (idle timeout "
+          f"{AUTOSCALE_IDLE_S} s); transitions {states}; a remote GPU node "
+          f"type refused")
+    return res
+
+
+def phase_cli_job(card):
+    """(f) The CLI's head, a job on the card, status, list and timeline,
+    and stop, in a ``TMPDIR`` of the phase's own."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    old_env = {k: os.environ.get(k) for k in ("TMPDIR", "RTPU_SESSION_TOKEN")}
+    os.environ["TMPDIR"] = tmp
+    tempfile.tempdir = None
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    shm = "/dev/shm"
+    shm_before = {f for f in os.listdir(shm) if f.startswith("rtpt_")}
+    session = f"p19{os.getpid()}"
+
+    def cli(*args, timeout=120):
+        out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                             capture_output=True, text=True, env=env,
+                             timeout=timeout, cwd=root)
+        check(out.returncode == 0, f"cli {args[:2]}: rc {out.returncode}: "
+              f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+        return out.stdout
+
+    t_phase = time.perf_counter()
+    stopped = None
+    try:
+        head = cli("start", "--head", "--session", session)
+        addr = head.split(" at ", 1)[1].split()[0]
+        t0 = time.perf_counter()
+        job = cli("job", "submit", "--address", addr, "--timeout", "600",
+                  "--", sys.executable, "-c", shlex.quote(JOB_SRC), DEVICE,
+                  shlex.quote(json.dumps(FLAGSHIP_ATTN)), timeout=900)
+        job_s = time.perf_counter() - t0
+        check("SUCCEEDED (rc=0)" in job, f"cli: the job did not succeed: "
+              f"{job[-2000:]}")
+        line = next(ln for ln in job.splitlines()
+                    if ln.startswith("job-flash "))
+        flash = json.loads(line.split(" ", 1)[1])
+        check(flash["launches"] == 1 and flash["task_pid"] != flash["job_pid"],
+              f"cli: the job's flash launches and task {flash}")
+        check(flash["max_abs_err"] <= BF16_O_TOL
+              and flash["rel_err"] <= BF16_O_REL,
+              f"cli: the job's flash forward off its plain version {flash}")
+        check(flash["resources"].get("GPU", 0) >= 1,
+              f"cli: the job's driver saw no GPU: {flash['resources']}")
+        status = cli("status", "--address", addr)
+        check("True" in status, f"cli: status {status}")
+        # a driver of this process joins, for the state and the timeline
+        rt.init(address=addr, num_cpus=1, max_process_workers=1)
+        try:
+            @rt.remote(num_cpus=1)
+            class Pinger:
+                def ping(self):
+                    return os.getpid()
+
+            pinger = Pinger.options(name="p19_pinger").remote()
+            check(rt.get(pinger.ping.remote(), timeout=DAG_WAIT_S)
+                  != os.getpid(), "cli: the actor ran in the driver")
+            listed = cli("list", "actors", "--address", addr)
+            check("Pinger" in listed and "ALIVE" in listed,
+                  f"cli: list actors {listed}")
+            host, port = start_dashboard()
+            path = os.path.join(tmp, "timeline.json")
+            cli("timeline", "--dashboard", f"{host}:{port}", "--out", path)
+            with open(path) as f:
+                spans = json.load(f)
+            check(any("Pinger.ping" in e["name"] for e in spans),
+                  f"cli: timeline spans {[e['name'] for e in spans][:8]}")
+            stop_dashboard()
+            rt.kill(pinger)
+        finally:
+            rt.shutdown()
+    finally:
+        try:
+            stopped = subprocess.run(
+                [sys.executable, "-m", "ray_tpu_torch", "stop", "--session",
+                 session], capture_output=True, text=True, env=env,
+                timeout=60, cwd=root).stdout.strip()
+        finally:
+            for k, v in old_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            tempfile.tempdir = None
+    check(stopped == "terminated 1 process(es)", f"cli: stop said {stopped!r}")
+    deadline = time.perf_counter() + RUNTIME_FREE_WAIT_S
+    while time.perf_counter() < deadline:
+        left = sorted({f for f in os.listdir(shm) if f.startswith("rtpt_")}
+                      - shm_before)
+        if not left:
+            break
+        time.sleep(0.1)
+    check(not left, f"cli: segments left in /dev/shm: {left[:8]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = {"job_s": job_s, "job_flash": flash, "timeline_spans": len(spans),
+           "stop": stopped, "wall_s": time.perf_counter() - t_phase,
+           "launches": {"flash_fwd": flash["launches"]}}
+    print(f"cli ({card}): start --head, a job SUCCEEDED in {job_s:.3f} s "
+          f"(a CPU task in pid {flash['task_pid']}, the flash forward at "
+          f"{FLAGSHIP_ATTN} on the card: {flash['launches']} launch, |dO| "
+          f"{flash['max_abs_err']:.3g}, rel {flash['rel_err']:.3g} against "
+          f"plain); status, list actors, timeline ({len(spans)} spans); "
+          f"{stopped}; no segment left")
+    return res
+
+
+def phase_slice19(direct, card):
+    """Phase 19: DAGs, workflows and tracing, then the autoscaler and the
+    CLI with a job, at the flagship's width on the card."""
+    t0 = time.perf_counter()
+    out = phase_dag(direct, card)
+    out["autoscale"] = phase_autoscale(direct, card)
+    out["cli"] = phase_cli_job(card)
+    DAG_CONTEXT.clear()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches_by_part"] = {
+        "dag": _add_launches(out["jit"]["launches"],
+                             out["compiled"]["launches"],
+                             out["trace"]["launches"]),
+        "workflow": out["workflow"]["launches"],
+        "autoscaler": out["autoscale"]["launches"],
+        "job": {**dict.fromkeys(out["autoscale"]["launches"], 0),
+                **out["cli"]["launches"]}}
+    print(f"phase 19 took {out['wall_s']:.3f} s ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4707,7 +5407,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     data_out, tuned, checkpointed = this.phase_data(direct, tokens, trained,
                                                     card)
-    data_parts = data_out["launches_by_part"]
+    # Phase 19's actors and its GPU workflow step read the phase's
+    # flagship from the module's globals: run it from the module too.
+    torch.cuda.empty_cache()
+    slice19 = this.phase_slice19(direct, card)
+    data_parts = {**data_out["launches_by_part"],
+                  **slice19["launches_by_part"]}
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
     train_sched = trained["scheduler_launches"]
@@ -4729,6 +5434,8 @@ def main() -> int:
     print(json.dumps({"data": data_out, "checkpoint": checkpointed,
                       "card": card}, default=str))
     print(json.dumps({"tune": tuned, "card": card}, default=str))
+    print(json.dumps({"dag_workflow_ops": slice19, "card": card},
+                     default=str))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{

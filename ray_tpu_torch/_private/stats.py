@@ -154,6 +154,26 @@ def install_runtime_metrics() -> None:
         "ray_tpu_data_trainer_starvation",
         "Fraction of the last run_with_data wall time the trainer "
         "spent waiting on the data iterator (~0 = compute-bound)")
+    as_instances = m.Gauge(
+        "ray_tpu_autoscaler_instances",
+        "Cluster-autoscaler instance table by lifecycle state "
+        "(docs/autoscaler.md); series vanish when a scaler stops",
+        tag_keys=("state",))
+    as_demand = m.Gauge(
+        "ray_tpu_autoscaler_demand",
+        "Aggregated pending demand per resource shape (gang "
+        "granular, e.g. shape=\"CPU:1,GPU:8\"); returns to 0 when "
+        "the unplaceable ledger and PG cohorts drain",
+        tag_keys=("shape",))
+    as_retries = m.Gauge(
+        "ray_tpu_autoscaler_launch_retries",
+        "Cumulative instance re-launches beyond the first attempt "
+        "(lost/failed/boot-then-die allocations re-driven under "
+        "seeded backoff)")
+    as_drains = m.Gauge(
+        "ray_tpu_autoscaler_drains",
+        "Completed drain-before-terminate scale-downs (cordon + "
+        "checkpoint + migrate succeeded before the node left)")
 
     def collect():
         from ray_tpu_torch._private.worker import try_global_worker
@@ -295,6 +315,19 @@ def install_runtime_metrics() -> None:
         data_locality.set(dsnap.get("locality_misses", 0),
                           tags={"kind": "misses"})
         data_starvation.set(data_stats.starvation())
+        # cluster autoscaler (docs/autoscaler.md §Observability): the
+        # clear()+re-set idiom makes a stopped scaler's per-state and
+        # per-shape series vanish
+        from ray_tpu_torch.autoscaler import v2 as autoscaler_v2
+        asnap = autoscaler_v2.metrics_snapshot()
+        as_instances.clear()
+        for state, count in asnap["instances"].items():
+            as_instances.set(count, tags={"state": state})
+        as_demand.clear()
+        for shape, count in asnap["demand"].items():
+            as_demand.set(count, tags={"shape": shape})
+        as_retries.set(asnap["launch_retries"])
+        as_drains.set(asnap["drains"])
 
     m.register_collector(collect)
 

@@ -36,6 +36,16 @@ from ray_tpu_torch._private.scheduler.resources import NodeResources
 from ray_tpu_torch._private.worker import Worker, global_worker, init, shutdown
 
 
+def refuse_remote_gpu(resources: Dict[str, float]) -> None:
+    """Raise ``ValueError`` for a remote node that would carry GPUs."""
+    if resources.get("GPU", 0.0) > 0:
+        raise ValueError(
+            "a remote node's raylet and workers see no card; GPU work "
+            "runs on the head driver's threads (add GPU to the head via "
+            "Cluster(num_gpus=...) or to a logical node with "
+            "remote=False)")
+
+
 class Cluster:
     def __init__(self, head_num_cpus: float = 4,
                  head_resources: Optional[Dict[str, float]] = None,
@@ -100,12 +110,8 @@ class Cluster:
             total["GPU"] = float(num_gpus)
         if resources:
             total.update({k: float(v) for k, v in resources.items()})
-        if remote and total.get("GPU", 0.0) > 0:
-            raise ValueError(
-                "a remote node's raylet and workers see no card; GPU work "
-                "runs on the head driver's threads (add GPU to the head via "
-                "Cluster(num_gpus=...) or to a logical node with "
-                "remote=False)")
+        if remote:
+            refuse_remote_gpu(total)
         w = self._worker
         node_id = NodeID.from_random()
         if remote:

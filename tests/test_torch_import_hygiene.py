@@ -290,6 +290,42 @@ def test_sources_cover_data_tune_and_array_checkpoint():
     assert not missing, missing
 
 
+DAG_WORKFLOW_OPS_MODULES = (
+    "dag/__init__", "util/tracing", "workflow/__init__",
+    "util/actor_pool", "util/queue", "util/multiprocessing",
+    "util/joblib_backend", "util/state", "autoscaler/__init__",
+    "autoscaler/v2", "job_submission", "dashboard/__init__",
+    "scripts/cli", "__main__")
+
+
+def test_sources_cover_dag_workflow_and_cluster_ops():
+    """The scan above reaches every module of the DAGs, workflows and
+    tracing, and of the cluster operations and remaining utilities."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in DAG_WORKFLOW_OPS_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+    assert len(DAG_WORKFLOW_OPS_MODULES) == 14
+
+
+def test_cli_help_loads_no_jax():
+    """``python -m ray_tpu_torch --help`` imports neither JAX nor torch
+    nor anything of ``ray_tpu`` (``-X importtime`` lists every module
+    the interpreter loads)."""
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "ray_tpu_torch",
+         "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "usage: ray_tpu_torch" in out.stdout
+    loaded = [line.rsplit("|", 1)[1].strip()
+              for line in out.stderr.splitlines()
+              if line.startswith("import time:") and line.count("|") == 2]
+    assert "ray_tpu_torch.scripts.cli" in loaded
+    bad = [m for m in loaded
+           if _forbidden(m) or m.split(".")[0] == "torch"]
+    assert not bad, bad
+
+
 def test_import_scan_refuses_orbax():
     """The sharded checkpoints use ``torch.distributed.checkpoint``: the
     scan flags the reference's orbax import."""
@@ -309,7 +345,13 @@ def test_import_scan_refuses_orbax():
                                     "ray_tpu_torch.cluster_utils",
                                     "ray_tpu_torch.data",
                                     "ray_tpu_torch.tune",
-                                    "ray_tpu_torch._private.data_stats"])
+                                    "ray_tpu_torch._private.data_stats",
+                                    "ray_tpu_torch.dag",
+                                    "ray_tpu_torch.workflow",
+                                    "ray_tpu_torch.autoscaler.v2",
+                                    "ray_tpu_torch.job_submission",
+                                    "ray_tpu_torch.dashboard",
+                                    "ray_tpu_torch.scripts.cli"])
 def test_runtime_imports_load_neither_torch_nor_jax(module):
     """A process worker imports ``worker_process`` (and so the package),
     and a replica in one imports Serve, a gang worker Train and a slice
@@ -318,7 +360,9 @@ def test_runtime_imports_load_neither_torch_nor_jax(module):
     ``cluster_utils``: in a fresh interpreter none of them loads torch
     or JAX (a GCS or raylet that imported torch would pay seconds at
     every start). A CPU map task or a Tune trial in a process worker
-    imports Data or Tune, and must not pay torch's import either."""
+    imports Data or Tune, and must not pay torch's import either; nor
+    must a workflow step or a DAG stage, nor the CLI, the job client,
+    the dashboard or the autoscaler a driver starts."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
             "if m in sys.modules))")
@@ -374,13 +418,37 @@ _SESSION_CODE = {
                 "       for p in procs])\n"
                 "print(c.worker.session, v)\n"
                 "c.shutdown()\n"),
+    # The CLI's head, a job submitted without a log directory, the
+    # CLI's stop: the job's log goes to the session directory "jobs".
+    "cli": ("import os, re, subprocess, sys\n"
+            "def cli(*a):\n"
+            "    return subprocess.run([sys.executable, '-m',\n"
+            "        'ray_tpu_torch', *a], capture_output=True,\n"
+            "        text=True, timeout=60).stdout\n"
+            "s = f'clitmp{os.getpid()}'\n"
+            "addr = re.search(r'at (\\S+:\\d+)',\n"
+            "                 cli('start', '--head', '--session', s))[1]\n"
+            "try:\n"
+            "    from ray_tpu_torch._private import rpc\n"
+            "    rpc.set_session_token(rpc.load_session_token_file(s))\n"
+            "    from ray_tpu_torch.job_submission import (\n"
+            "        JobSubmissionClient)\n"
+            "    c = JobSubmissionClient(addr)\n"
+            "    j = c.submit_job(entrypoint='echo 2')\n"
+            "    info = c.wait_until_finished(j, timeout=60)\n"
+            "    c.close()\n"
+            "    print(info.status, info.log_path)\n"
+            "finally:\n"
+            "    print(cli('stop', '--session', s).strip())\n"
+            "print(s, open(info.log_path).read().strip())\n"),
 }
 
 
 @pytest.mark.parametrize("depth,mode", [("short", "single"),
                                         ("long", "single"),
-                                        ("short", "cluster")],
-                         ids=["short", "long", "cluster"])
+                                        ("short", "cluster"),
+                                        ("short", "cli")],
+                         ids=["short", "long", "cluster", "cli"])
 def test_session_files_live_under_tmpdir(tmp_path, depth, mode):
     """Every file a session writes on the host (session dir, the
     ``rtpt_current`` pointer) lands under ``TMPDIR``, and none in
@@ -388,7 +456,9 @@ def test_session_files_live_under_tmpdir(tmp_path, depth, mode):
     process workers (the hub listens in the abstract namespace). A
     cluster's GCS process and remote raylet keep their address, log and
     state files in the head's and the node's session directories there,
-    and neither loads torch."""
+    and neither loads torch. The CLI's head keeps its files in its
+    session directory, a job's log goes to the session directory
+    ``jobs``, and ``stop`` ends the head's GCS."""
     tmpdir = tmp_path / ("d" * 90 if depth == "long" else "t")
     tmpdir.mkdir()
     env = dict(os.environ, TMPDIR=str(tmpdir))
@@ -414,3 +484,10 @@ def test_session_files_live_under_tmpdir(tmp_path, depth, mode):
         node = tmpdir / f"rtpt_{session}n1"
         assert [p.suffix for p in sorted(node.glob("raylet_*"))] \
             == [".addr", ".log"]
+    if mode == "cli":
+        status, log_path = out.stdout.splitlines()[-3].split()
+        assert status == "SUCCEEDED"
+        assert pathlib.Path(log_path).parent == tmpdir / "rtpt_jobs"
+        assert out.stdout.splitlines()[-2] == "terminated 1 process(es)"
+        for name in ("gcs.addr", "gcs.log", "gcs_state.bin"):
+            assert (ours / name).is_file(), name
