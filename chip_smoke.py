@@ -270,16 +270,32 @@ Phases, each fatal on failure:
    card against its plain version (SUCCEEDED, its log line parsed), then
    ``status``, ``list actors`` and ``timeline`` with a driver of this
    process joined, and ``stop``: one process terminated, no segment left.
+20. RL (``ray_tpu_torch.rl``), after a fresh ``init()``, every learner on
+   the card (TF32 off) and its runners in CPU process workers. (a) PPO
+   at the reference's learning-test settings (2 runners x 16 CartPole
+   envs, rollout 128, lr 3e-3, 10 epochs, seed 1) in a placement group
+   whose learner bundle asks for the GPU: each of its first 3 updates
+   held against the same update on the CPU (``make_update(config,
+   "cpu")``) on the same params and batch, every parameter within 1e-4;
+   up to 30 more iterations must reach the reference's ``best >= 120``;
+   update ms, iteration wall time, and the device idle share of one
+   update traced with torch.profiler. (b) DQN, IMPALA and multi-agent
+   PPO, 2 iterations each, every update held against the CPU path the
+   same way, and IMPALA's V-trace targets of each batch computed on the
+   card against the CPU function (rtol and atol 1e-4). The launches of
+   every kernel over the phase are its ``rl`` path (all 0: RL runs none
+   of the flash or scheduler kernels).
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"training": ...}``, ``{"mesh_training": ...}``, ``{"pipeline": ...}``,
 ``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}``,
-``{"data": ...}``, ``{"tune": ...}``, ``{"dag_workflow_ops": ...}`` and
-``{"kernels": [...]}`` lines (each kernel's ``launches_by_path`` has the
-``data``, ``tune`` and ``checkpoint`` paths of phase 18 and the ``dag``,
-``workflow``, ``autoscaler`` and ``job`` paths of phase 19),
+``{"data": ...}``, ``{"tune": ...}``, ``{"dag_workflow_ops": ...}``,
+``{"rl": ...}`` and ``{"kernels": [...]}`` lines (each kernel's
+``launches_by_path`` has the ``data``, ``tune`` and ``checkpoint`` paths
+of phase 18, the ``dag``, ``workflow``, ``autoscaler`` and ``job`` paths
+of phase 19 and the ``rl`` path of phase 20),
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -5354,6 +5370,205 @@ def phase_slice19(direct, card):
     return out
 
 
+# -- phase 20: RL ----------------------------------------------------------
+
+RL_TOL = 1e-4            # abs, every parameter: card update vs CPU update
+RL_CHECKED = 3           # PPO updates held against the CPU path
+RL_PPO_ITERS = 30        # the reference's budget and threshold
+RL_PPO_BEST = 120.0      # (tests/test_rl.py:46-64, seed 1)
+RL_OTHER_ITERS = 2       # DQN, IMPALA and multi-agent PPO
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _leaves(value)
+    else:
+        yield np.asarray(tree, np.float64)
+
+
+def _max_abs(a, b):
+    return max(float(np.max(np.abs(x - y))) if x.size else 0.0
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+class CheckedUpdate:
+    """An algorithm's ``_update`` on the card (numpy in, numpy out), timed
+    on the host clock; each of its first ``checked`` calls is also run by
+    the same update on the CPU on the same inputs, and every parameter of
+    the two results held within RL_TOL. ``extra(args)`` runs beside each
+    checked call."""
+
+    def __init__(self, name, module, config, checked, extra=None):
+        self.name, self.checked, self.extra = name, checked, extra
+        self.card = module.make_update(config, DEVICE)
+        self.cpu = module.make_update(config, "cpu")
+        self.ms, self.param_err, self.other_err = [], [], []
+        self.last_args = None
+
+    def __call__(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.card(*args)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.last_args = args
+        if len(self.param_err) < self.checked:
+            want = self.cpu(*args)
+            err = _max_abs(out[0], want[0])
+            self.param_err.append(err)
+            self.other_err.append(_max_abs(out[1:], want[1:]))
+            check(err <= RL_TOL,
+                  f"rl {self.name}: update {len(self.param_err)} on the "
+                  f"card off the CPU path by {err:.3e} > {RL_TOL}")
+            if self.extra is not None:
+                self.extra(args)
+        return out
+
+    def summary(self):
+        return {"updates": len(self.ms), "update_ms": self.ms,
+                "update_ms_median": float(np.median(self.ms)),
+                "checked_param_max_abs": self.param_err,
+                "checked_state_max_abs": self.other_err}
+
+
+def rl_ppo(rl, card):
+    """(a) PPO at the reference's learning-test settings, learner on the
+    card; the first RL_CHECKED updates held against the CPU path; up to
+    RL_PPO_ITERS iterations to reach RL_PPO_BEST; one update traced."""
+    from ray_tpu_torch.rl import ppo
+    algo = (rl.PPOConfig()
+            .environment("CartPole")
+            .env_runners(num_env_runners=2, num_envs_per_runner=16,
+                         rollout_length=128)
+            .training(lr=3e-3, epochs=10, entropy_coeff=0.01, seed=1,
+                      device=DEVICE)
+            .build())
+    try:
+        check(algo.device.type == torch.device(DEVICE).type,
+              f"rl ppo: learner on {algo.device}")
+        bundle = algo._default_learner_bundle()
+        algo._update = upd = CheckedUpdate("ppo", ppo, algo.config,
+                                           RL_CHECKED)
+        first = algo.train()
+        best, iters, walls = 0.0, 1, [first["time_this_iter_s"]]
+        while best < RL_PPO_BEST and iters < 1 + RL_PPO_ITERS:
+            result = algo.train()
+            iters += 1
+            walls.append(result["time_this_iter_s"])
+            best = max(best, result["episode_return_mean"])
+        check(len(upd.param_err) == RL_CHECKED,
+              f"rl ppo: {len(upd.param_err)} checked updates")
+        check(best >= RL_PPO_BEST,
+              f"rl ppo: best {best:.1f} < {RL_PPO_BEST} in {iters} "
+              f"iterations")
+        trace = profile_device(lambda: upd.card(*upd.last_args),
+                               "rl ppo update")
+        out = {**upd.summary(), "iterations": iters, "best": best,
+               "iteration_s": walls,
+               "iteration_s_median": float(np.median(walls)),
+               "learner_bundle": bundle,
+               "device_idle_share": trace.get("idle_share"),
+               "trace": trace}
+        print(f"rl ppo: best {best:.1f} after {iters} iterations; update "
+              f"{out['update_ms_median']:.2f} ms (median of {len(upd.ms)}),"
+              f" iteration {out['iteration_s_median']:.3f} s, device idle "
+              f"share {out['device_idle_share']}; card vs CPU "
+              f"{max(upd.param_err):.3e} ({card})")
+        return out
+    finally:
+        algo.stop()
+
+
+def rl_vtrace_check(config, got):
+    """IMPALA's V-trace targets of an update's batch, from the CPU's
+    values: the function on the card against the same on the CPU."""
+    from ray_tpu_torch.rl import impala, ppo
+
+    def inputs(args):
+        params, _, _, obs, actions, logp, rewards, dones, last_obs, _ = args
+        with torch.no_grad():
+            p = ppo.to_device(params, "cpu")
+            logits, values = ppo._net(p, torch.from_numpy(obs))
+            _, last_v = ppo._net(p, torch.from_numpy(last_obs))
+            _, target = ppo._log_probs(
+                logits, torch.from_numpy(actions).long())
+        rhos = torch.exp(target - torch.from_numpy(logp))
+        not_done = 1.0 - torch.from_numpy(dones).float()
+        return values, last_v, torch.from_numpy(rewards), not_done, rhos
+
+    def extra(args):
+        cpu_in = inputs(args)
+        kw = dict(gamma=config.gamma, rho_clip=config.rho_clip,
+                  c_clip=config.c_clip)
+        want = impala.vtrace_targets(*cpu_in, **kw)
+        have = [h.cpu() for h in impala.vtrace_targets(
+            *(x.to(DEVICE) for x in cpu_in), **kw)]
+        # the reference's bound, rtol and atol 1e-4, element by element
+        check(all(bool(((h - w).abs() <= RL_TOL * (1 + w.abs())).all())
+                  for h, w in zip(have, want)),
+              "rl impala: V-trace on the card off the CPU function")
+        got.append(max(float((h - w).abs().max())
+                       for h, w in zip(have, want)))
+    return extra
+
+
+def rl_others(rl, card):
+    """(b) DQN, IMPALA and multi-agent PPO, RL_OTHER_ITERS iterations
+    each, learner on the card, every update held against the CPU path."""
+    from ray_tpu_torch.rl import dqn, impala, multi_agent
+    out = {}
+    vtrace_err = []
+    for name, module, config in (
+            ("dqn", dqn, rl.DQNConfig(device=DEVICE)),
+            ("impala", impala, rl.IMPALAConfig(lr=3e-3, seed=3,
+                                               device=DEVICE)),
+            ("multi_agent", multi_agent,
+             rl.MultiAgentPPOConfig(seed=3, device=DEVICE))):
+        algo = config.build()
+        try:
+            extra = (rl_vtrace_check(config, vtrace_err)
+                     if name == "impala" else None)
+            algo._update = upd = CheckedUpdate(name, module, config,
+                                               RL_OTHER_ITERS, extra)
+            results = [algo.train() for _ in range(RL_OTHER_ITERS)]
+            check(len(upd.param_err) == RL_OTHER_ITERS,
+                  f"rl {name}: {len(upd.param_err)} checked updates")
+            out[name] = {**upd.summary(), "results": results}
+            print(f"rl {name}: {len(upd.ms)} updates, "
+                  f"{out[name]['update_ms_median']:.2f} ms median, card vs "
+                  f"CPU {max(upd.param_err):.3e} ({card})")
+        finally:
+            algo.stop()
+    out["impala"]["vtrace_max_abs"] = vtrace_err
+    return out
+
+
+def phase_rl(card):
+    """Phase 20: RL (PPO, DQN, IMPALA, multi-agent PPO) with the learners
+    on the card and CPU process-worker runners, after a fresh ``init()``.
+    The launches of every kernel over the phase are its ``rl`` path."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rl
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "rl: TF32 is on for fp32 matmuls")
+    t0 = time.perf_counter()
+    before = _counts()
+    rt.init()
+    try:
+        out = {"ppo": rl_ppo(rl, card), **rl_others(rl, card)}
+    finally:
+        rt.shutdown()
+    out["launches"] = _launch_delta(before)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 20 took {out['wall_s']:.3f} s, launches "
+          f"{out['launches']} ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5411,8 +5626,10 @@ def main() -> int:
     # flagship from the module's globals: run it from the module too.
     torch.cuda.empty_cache()
     slice19 = this.phase_slice19(direct, card)
+    torch.cuda.empty_cache()
+    rl_out = phase_rl(card)
     data_parts = {**data_out["launches_by_part"],
-                  **slice19["launches_by_part"]}
+                  **slice19["launches_by_part"], "rl": rl_out["launches"]}
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
     train_sched = trained["scheduler_launches"]
@@ -5436,6 +5653,7 @@ def main() -> int:
     print(json.dumps({"tune": tuned, "card": card}, default=str))
     print(json.dumps({"dag_workflow_ops": slice19, "card": card},
                      default=str))
+    print(json.dumps({"rl": rl_out, "card": card}, default=str))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 import threading
-from multiprocessing.connection import Connection, Listener
+from multiprocessing.connection import Client, Connection, Listener
 from typing import Callable, Dict
 
 from ray_tpu_torch._private.session_dir import session_dir
@@ -58,6 +58,9 @@ class ConnectionHub:
                 if self._shutdown:
                     return
                 continue
+            if self._shutdown:
+                conn.close()    # shutdown's wake-up connection
+                return
             try:
                 msg = conn.recv()
             except (EOFError, OSError):
@@ -79,6 +82,14 @@ class ConnectionHub:
 
     def shutdown(self) -> None:
         self._shutdown = True
+        # Closing the listener does not wake a thread blocked in accept()
+        # on Linux: connect once so that the accept loop sees the flag
+        # and ends, instead of outliving the runtime.
+        try:
+            Client(hub_socket_address(self.address), "AF_UNIX").close()
+        except OSError:
+            pass    # listener already gone: the loop has ended
+        self._thread.join(timeout=5.0)
         try:
             self._listener.close()
         except Exception:

@@ -82,7 +82,9 @@ class DeviceStore:
     """
 
     def __init__(self):
-        self._lock = threading.Lock()
+        # Reentrant, as ShmStore's: a garbage-collected ObjectRef frees
+        # through this store on whatever thread the collection ran.
+        self._lock = threading.RLock()
         self._arrays: Dict[ObjectID, object] = {}
         self.num_put = 0
         self.num_spilled_to_host = 0
@@ -123,7 +125,7 @@ class DeviceStore:
     def stats(self) -> dict:
         with self._lock:
             total = 0
-            for arr in self._arrays.values():
+            for arr in list(self._arrays.values()):
                 try:
                     total += int(arr.nbytes)
                 except Exception:

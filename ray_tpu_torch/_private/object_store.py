@@ -133,7 +133,11 @@ class ShmStore:
         self._capacity = capacity_bytes
         self._spill_threshold = spill_threshold
         self._spill_dir = spill_dir
-        self._lock = threading.Lock()
+        # Reentrant: the cyclic garbage collector can run at any
+        # allocation inside a critical section, and an ObjectRef it
+        # finalizes frees its object through this store on the same
+        # thread, which would wait on itself forever with a plain Lock.
+        self._lock = threading.RLock()
         self._segments: Dict[ObjectID, shared_memory.SharedMemory] = {}  # guarded-by: _lock
         self._sizes: Dict[ObjectID, int] = {}  # guarded-by: _lock
         # LRU order

@@ -16,6 +16,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ray_tpu_torch._private import serialization
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.ids import ObjectID, TaskID
+from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.task_spec import TaskSpec
 from ray_tpu_torch.exceptions import (
     OutOfMemoryError,
@@ -57,7 +58,11 @@ def _contained_item(c):
     ref object so the borrow releases when the container frees.
     Accepts list spellings of the pair too: a completion that rode the
     binary small-frame path (docs/data_plane.md) arrives with msgpack's
-    tuple->list normalization applied."""
+    tuple->list normalization applied. A live driver-owned ref (from
+    a task on a thread of the driver) passes through: it holds the
+    object until the owner has pinned it as contained."""
+    if isinstance(c, ObjectRef):
+        return c
     if isinstance(c, (tuple, list)) and len(c) == 2 and c[1] is not None:
         from ray_tpu_torch._private.object_ref import adopt_preregistered_ref
         return adopt_preregistered_ref(c[0], tuple(c[1]))

@@ -38,7 +38,8 @@ from ray_tpu_torch._private.ref_counting import ReferenceCounter
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.scheduler.policy import default_policy
 from ray_tpu_torch._private.scheduler.resources import NodeResources
-from ray_tpu_torch._private.task_manager import Entry, TaskManager
+from ray_tpu_torch._private.task_manager import (
+    Entry, TaskManager, _contained_item)
 from ray_tpu_torch._private.task_spec import (
     FunctionDescriptor,
     TaskArg,
@@ -1322,7 +1323,7 @@ class Worker:
             # generator task (see _recover_object's streaming reset)
             self.task_manager.add_stream_lineage(oid, task_id)
             entry = Entry(kind_map[kind], data,
-                          tuple(ObjectID(c) for c in contained))
+                          tuple(_contained_item(c) for c in contained))
             self._store_result(oid, entry)
 
     def _apply_pg_strategy(self, spec: TaskSpec, options: TaskOptions

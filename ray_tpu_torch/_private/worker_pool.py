@@ -155,7 +155,8 @@ class InProcessWorker(BaseWorker):
     def __init__(self, session: str, max_inline_bytes: int,
                  reply_handler: Callable[["InProcessWorker", tuple], None]):
         super().__init__()
-        self.env = ExecutionEnv(session, max_inline_bytes)
+        self.env = ExecutionEnv(session, max_inline_bytes,
+                                in_process=True)
         # unbounded-ok: fed by the dispatcher one leased task at a
         # time (plus control messages); a bound here could deadlock
         # the shutdown path

@@ -109,9 +109,11 @@ _CURRENT_TASK = _TaskLocal()
 class ExecutionEnv:
     """Per-worker execution state: function cache, shm access, session."""
 
-    def __init__(self, session: str, max_inline_bytes: int):
+    def __init__(self, session: str, max_inline_bytes: int,
+                 in_process: bool = False):
         self.session = session
         self.max_inline_bytes = max_inline_bytes
+        self.in_process = in_process    # on a thread of the driver
         self.functions: Dict[bytes, Callable] = {}
         self.actors: Dict[bytes, Any] = {}
         self._actor_envs: Dict[bytes, Optional[dict]] = {}
@@ -456,16 +458,19 @@ class ExecutionEnv:
                 out.append((oid_bytes, "shm", (name, size), contained))
         return out
 
-    @staticmethod
-    def _contained_desc(r):
+    def _contained_desc(self, r):
         """Wire item for a ref captured inside a result value. For a
         worker-owned ref, register a borrow with the owner ON BEHALF of
         the recipient before the message ships (borrow handed off with
         the message — otherwise the owner could free the object in the
-        window between this task ending and the recipient pinning it)."""
+        window between this task ending and the recipient pinning it).
+        On a thread of the driver the message never leaves the process:
+        a driver-owned ref rides in it as the live ref, which keeps the
+        object alive past the task's frame until the owner has pinned it
+        as contained."""
         owner = getattr(r, "_owner_addr", None)
         if owner is None:
-            return r.binary()
+            return r if self.in_process else r.binary()
         from ray_tpu_torch._private import worker_core
         oid = r.id() if hasattr(r, "id") else r
         worker_core.register_borrow(owner, oid)

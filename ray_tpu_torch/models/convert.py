@@ -72,6 +72,18 @@ def shard_params_from_jax(tree, mesh, specs, device="cuda"
     return _convert(tree, device, block)
 
 
+def adam_state_from_optax(state) -> Dict[str, Any]:
+    """The port's Adam state (``{"m", "v", "count"}``, numpy, as
+    ``rl.dqn`` keeps it) from optax's ``ScaleByAdamState`` (``count``,
+    ``mu``, ``nu``) with numpy leaves, or from the chain state of
+    ``optax.adam`` that holds it. The moments are dicts of arrays."""
+    if not hasattr(state, "mu"):
+        state = next(part for part in state if hasattr(part, "mu"))
+    return {"m": {k: np.asarray(x, np.float32) for k, x in state.mu.items()},
+            "v": {k: np.asarray(x, np.float32) for k, x in state.nu.items()},
+            "count": np.asarray(state.count, np.int32)}
+
+
 def _convert(tree, device, take) -> Dict[str, Any]:
     dev = resolve_device(device)
     top = next((keys for keys in _TOP_KEYS if set(tree) == set(keys)), None)

@@ -52,6 +52,22 @@ _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
 
 
+def _warm_up_cpu_exp() -> None:
+    """Call ``torch.exp`` and ``torch.logsumexp`` once on a CPU tensor
+    large enough to split over every intra-op thread. A process's first
+    such call on a thread can come out up to 1e-4 off on that thread's
+    share (seen with torch 2.13+cpu under load, about once in 30-50 fresh
+    processes); every later call is exact. Made at import, that first
+    call is never one of the plain versions' below. It changes no
+    result."""
+    s = torch.zeros(64, 1 << 14)
+    torch.exp(s)
+    torch.logsumexp(s, dim=-1)
+
+
+_warm_up_cpu_exp()
+
+
 def mha_reference(q, k, v, *, causal: bool = True,
                   sm_scale: Optional[float] = None,
                   q_offset: int = 0, kv_offset: int = 0):

@@ -308,6 +308,19 @@ def test_sources_cover_dag_workflow_and_cluster_ops():
     assert len(DAG_WORKFLOW_OPS_MODULES) == 14
 
 
+RL_MODULES = ("rl/__init__", "rl/config", "rl/env", "rl/env_runner",
+              "rl/ppo", "rl/dqn", "rl/impala", "rl/multi_agent")
+
+
+def test_sources_cover_rl():
+    """The scan above reaches every module of RL."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    missing = [m for m in RL_MODULES
+               if f"ray_tpu_torch/{m}.py" not in names]
+    assert not missing, missing
+    assert len(RL_MODULES) == 8
+
+
 def test_cli_help_loads_no_jax():
     """``python -m ray_tpu_torch --help`` imports neither JAX nor torch
     nor anything of ``ray_tpu`` (``-X importtime`` lists every module
@@ -351,7 +364,8 @@ def test_import_scan_refuses_orbax():
                                     "ray_tpu_torch.autoscaler.v2",
                                     "ray_tpu_torch.job_submission",
                                     "ray_tpu_torch.dashboard",
-                                    "ray_tpu_torch.scripts.cli"])
+                                    "ray_tpu_torch.scripts.cli",
+                                    "ray_tpu_torch.rl"])
 def test_runtime_imports_load_neither_torch_nor_jax(module):
     """A process worker imports ``worker_process`` (and so the package),
     and a replica in one imports Serve, a gang worker Train and a slice
@@ -362,7 +376,8 @@ def test_runtime_imports_load_neither_torch_nor_jax(module):
     every start). A CPU map task or a Tune trial in a process worker
     imports Data or Tune, and must not pay torch's import either; nor
     must a workflow step or a DAG stage, nor the CLI, the job client,
-    the dashboard or the autoscaler a driver starts."""
+    the dashboard or the autoscaler a driver starts, nor an RL rollout
+    actor (``ray_tpu_torch.rl``'s runners step numpy envs)."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in ('torch', 'jax', 'ray_tpu') "
             "if m in sys.modules))")
