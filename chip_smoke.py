@@ -683,7 +683,8 @@ def phase_device():
     print(f"kernel build: {sorted(reports) or 'cached'} in {build_s:.2f} s")
     for src, report in sorted(reports.items()):
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (src == "scheduler" and "entry function" in line)):
                 print(f"  {src}: {line.strip()}")
     return name, count, card
 
@@ -1603,8 +1604,11 @@ def scheduler_launches_by_name():
 
 def launch_floor_ms(iters=200):
     """The least a launch costs here: the host round trip of one empty
-    kernel launch and a synchronize (median), and the device time of one
-    empty launch among back-to-back ones (CUDA events)."""
+    kernel launch and a synchronize (median), the device time of one empty
+    launch among back-to-back ones (CUDA events), and the host's time to
+    issue one of those launches (its clock over the same loop). Where the
+    last two are close, the back-to-back floor is the host's issue rate,
+    not the card's."""
     lib = pk._kernel_lib()
     lib.scheduler_empty.argtypes = [ctypes.c_void_p]
     lib.scheduler_empty.restype = ctypes.c_int
@@ -1619,7 +1623,17 @@ def launch_floor_ms(iters=200):
         empty()
         torch.cuda.synchronize()
         trips.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(trips)), time_ms(empty, iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        empty()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    end.synchronize()
+    return (float(np.median(trips)), start.elapsed_time(end) / iters,
+            issue_ms)
 
 
 SCHED_PLAIN = {"schedule_classes_cuda": (tp, "schedule_classes_plain"),
@@ -1699,6 +1713,21 @@ def sched_cluster(w, n_nodes=None):
     return cluster, names
 
 
+def sched_requests(w, cluster):
+    """``schedule_batch``'s requests: SCHED_POLICY_REQUESTS of the
+    benchmark's classes drawn from SEED, every fourth preferring one of the
+    cluster's first 16 nodes."""
+    rng = np.random.RandomState(SEED)
+    ids = [nid for nid, _ in cluster.nodes()]
+    return [spol.SchedulingRequest(
+        demand={"CPU": float(w.demands[c, 0]),
+                "memory": float(w.demands[c, 2]),
+                **({"TPU": float(w.demands[c, 1])} if w.demands[c, 1] else {})},
+        preferred_node=ids[rng.randint(0, 16)] if i % 4 == 0 else None)
+        for i, c in enumerate(rng.randint(0, len(w.counts),
+                                          SCHED_POLICY_REQUESTS))]
+
+
 def check_bundles_fit(cluster, assign, bundles, what):
     """No node takes more of a resource than it has available."""
     use = {}
@@ -1708,6 +1737,64 @@ def check_bundles_fit(cluster, assign, bundles, what):
     over = [(nid, r) for (nid, r), v in use.items()
             if v > cluster.get_node(nid).available.get(r, 0.0) + 1e-6]
     check(not over, f"{what}: {len(over)} node resources oversubscribed")
+
+
+
+def sched_launch_shape(program, n, r, b=0):
+    """The launch shape ``scheduler.cu`` picks: program 0 schedule_classes
+    at n x r, 1 pg_pack at n x r with b bundles."""
+    lib = tp._kernel_lib()
+    lib.scheduler_launch_shape.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.scheduler_launch_shape.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    check(lib.scheduler_launch_shape(program, n, r, b, out) == 0,
+          "scheduler_launch_shape refused its arguments")
+    keys = ("ctas", "threads", "smem_bytes", "slices_in_smem",
+            "clusters_held")
+    return dict(zip(keys, (int(x) for x in out)))
+
+
+def sched_edge_sweep():
+    """Every edge shape of ``workload.class_edge_cases`` and
+    ``pack_edge_cases`` through the kernels on the card, held exactly
+    against the plain versions on the same inputs."""
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    compared = []
+    for case in swl.class_edge_cases():
+        args = [torch.as_tensor(a).to(dev) for a in (
+            case.avail, case.total, case.alive, case.demands, case.counts,
+            case.prefs)]
+        want, want_avail = tp.schedule_classes_plain(
+            *(a.clone() for a in args), 0.5)
+        got, got_avail = tp.schedule_classes_cuda(*(a.clone() for a in args),
+                                                  0.5)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and torch.equal(got_avail, want_avail)
+        compared.append({"kernel": "schedule_classes", "case": case.name,
+                         "shape": [list(case.avail.shape),
+                                   int(case.demands.shape[0])],
+                         "equal": same})
+    for case in swl.pack_edge_cases():
+        args = [torch.as_tensor(a).to(dev) for a in (
+            case.avail, case.total, case.alive, case.demands)]
+        want = pk.pack_plain(*args, case.mode)
+        got = pk.pack_cuda(*args, case.mode)
+        torch.cuda.synchronize()
+        compared.append({"kernel": "pg_pack", "case": case.name,
+                         "shape": [list(case.avail.shape),
+                                   int(case.demands.shape[0])],
+                         "equal": torch.equal(got, want)})
+    for c in compared:
+        print(f"edge {c['kernel']} {c['case']} {c['shape']}: kernel == plain "
+              f"{c['equal']}")
+    check(all(c["equal"] for c in compared),
+          f"edge shapes differ: {[c['case'] for c in compared if not c['equal']]}")
+    seconds = time.perf_counter() - t0
+    print(f"edge sweep: {len(compared)} cases, all kernel == plain, "
+          f"{seconds:.2f} s with the plain versions")
+    return {"cases": compared, "s": seconds}
 
 
 def phase_scheduler():
@@ -1763,6 +1850,15 @@ def phase_scheduler():
                   f"{name} {mode} kernel differs from its plain version")
             check(bool(kern[..., -1].all()), f"{name} {mode} left a bundle")
 
+    # The redesigned kernels' launch shapes (-Xptxas -v's registers and
+    # shared memory are in phase 1's report), then every edge shape.
+    shapes = {"schedule_classes": sched_launch_shape(0, n, r),
+              "pg_pack": sched_launch_shape(1, tp._bucket(n), r,
+                                            pg_demands.shape[0])}
+    for key, shape in shapes.items():
+        print(f"{key} launch shape: {shape}")
+    edges = sched_edge_sweep()
+
     # Times on the card: kernel (CUDA events, avail refreshed before each
     # schedule_classes launch, which updates it in place), plain version.
     work = avail.clone()
@@ -1786,7 +1882,7 @@ def phase_scheduler():
             swl.PG_TOPK), 10), time_ms(lambda: pk.pack_batch_plain(
                 avail, total, alive, batch_demands, valid, "spread",
                 swl.PG_TOPK), 2, warmup=1))}
-    trip_ms, empty_ms = launch_floor_ms()
+    trip_ms, empty_ms, issue_ms = launch_floor_ms()
     f32 = 4
     base_bytes = 2 * n * r * f32 + n                # avail, total, alive
     nbytes = {
@@ -1813,7 +1909,8 @@ def phase_scheduler():
               f"launch {empty_ms * 1e3:.2f} us back to back), kernel / bound "
               f"{kern_ms / bound_ms:.1f}x")
     print(f"launch floor: {empty_ms * 1e3:.2f} us an empty launch back to "
-          f"back (device, CUDA events; in the bounds), {trip_ms * 1e3:.2f} us "
+          f"back (device, CUDA events; in the bounds), {issue_ms * 1e3:.2f} "
+          f"us the host's time to issue each of them, {trip_ms * 1e3:.2f} us "
           f"its host round trip with a synchronize (median; not in the "
           f"bounds)")
 
@@ -1825,15 +1922,7 @@ def phase_scheduler():
     adaptive = composite._inner
     tp._device_rt_threads[adaptive.device].join(timeout=60)
     cluster_small, names = sched_cluster(w, SCHED_POLICY_NODES)
-    rng = np.random.RandomState(SEED)
-    small_ids = [nid for nid, _ in cluster_small.nodes()]
-    requests = [spol.SchedulingRequest(
-        demand={"CPU": float(w.demands[c, 0]),
-                "memory": float(w.demands[c, 2]),
-                **({"TPU": float(w.demands[c, 1])} if w.demands[c, 1] else {})},
-        preferred_node=(small_ids[rng.randint(0, 16)] if i % 4 == 0
-                        else None))
-        for i, c in enumerate(rng.randint(0, k, SCHED_POLICY_REQUESTS))]
+    requests = sched_requests(w, cluster_small)
     cluster_big, _ = sched_cluster(w)
     solver = pk.PgKernelSolver()
     pg_bundles = [{nm: float(v) for nm, v in zip(names, row) if v > 0}
@@ -1909,6 +1998,10 @@ def phase_scheduler():
         tp.schedule_classes_cuda(b_work, *b_rest)
 
     batch_kernel_ms = time_ms(batch_kernel, 10)
+    shapes["schedule_classes_batch"] = sched_launch_shape(
+        0, b_avail.shape[0], b_avail.shape[1])
+    print(f"schedule_classes launch shape at schedule_batch's "
+          f"{tuple(b_avail.shape)}: {shapes['schedule_classes_batch']}")
     batch_classes = len({(tuple(sorted(q.demand.items())), q.preferred_node)
                          for q in requests})
     print(f"schedule_batch: {batch_s * 1e3:.3f} ms on the host clock; its "
@@ -1963,6 +2056,8 @@ def phase_scheduler():
             "pg_pack_batch": valid.numel() / (times["pg_pack_batch"][0]
                                               * 1e-3)},
         "launch_round_trip_ms": trip_ms, "empty_launch_ms": empty_ms,
+        "empty_launch_issue_ms": issue_ms,
+        "launch_shapes": shapes, "edge_sweep": edges,
         "launches": dict(zip(SCHEDULER_KERNELS, counts_run)),
         "kernels": rows}
     print(f"scheduler: {tasks_s:.1f} tasks/s with the host expansion "
@@ -5764,9 +5859,15 @@ def main() -> int:
             "bytes_bound_ms": k["bytes_bound_ms"],
             "launch_floor_ms": k["launch_floor_ms"],
             "library_ms": None,
-            "variant": "one CTA of 1024 threads"
-                       + (" (ranking), then one CTA per group"
-                          if key == "pg_pack_batch" else ""),
+            "variant": {
+                "schedule_classes": "one thread-block cluster: node slices "
+                                    "in shared memory, sums by st.async "
+                                    "exchanges, merge-path ranking",
+                "pg_pack": "one thread-block cluster: rows and util in "
+                           "shared memory, argmin by st.async exchanges",
+                "pg_pack_batch": "one CTA of 1024 threads (ranking), then "
+                                 "one CTA per group"}[key],
+            "launch_shape": scheduler["launch_shapes"].get(key),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -198,3 +198,60 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         tp.schedule_classes(*args[:2], args[2].float(), *args[3:], 0.5)
     with pytest.raises(ValueError, match="demands"):
         pk.pack(*args[:3], args[3].double(), "spread")
+
+
+@pytest.mark.parametrize("name", wl.CLASS_EDGE_NAMES)
+def test_schedule_classes_edge_shapes(cuda, name):
+    """The cluster kernel on each edge shape of
+    ``workload.class_edge_case``: one-node and odd slices, slices kept in
+    global memory, R = 1 and 64, dead and
+    identical rows, the residual pass, zero-count padded classes. Packed
+    rows and the new availability equal the plain version's exactly."""
+    case = wl.class_edge_case(name)
+    args = [torch.as_tensor(a).to(cuda) for a in (
+        case.avail, case.total, case.alive, case.demands, case.counts,
+        case.prefs)]
+    want, want_avail = tp.schedule_classes_plain(*[a.clone() for a in args],
+                                                 0.5)
+    got, got_avail = tp.schedule_classes(*[a.clone() for a in args], 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_avail, want_avail)
+
+
+@pytest.mark.parametrize("name", wl.PACK_EDGE_NAMES)
+def test_pg_pack_edge_shapes(cuda, name):
+    """The cluster kernel on each edge shape of ``workload.pack_edge_case``:
+    one row, odd sizes, rows in global memory (R = 64), identical and dead
+    rows, bundles that fit nowhere, STRICT_SPREAD with more bundles than
+    alive rows: the same nodes and all-placed flag as the plain version."""
+    case = wl.pack_edge_case(name)
+    args = [torch.as_tensor(a).to(cuda) for a in (
+        case.avail, case.total, case.alive, case.demands)]
+    want = pk.pack_plain(*args, case.mode)
+    got = pk.pack(*args, case.mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_kernels_on_each_card_in_turn(cuda):
+    """Kernel attributes and launch shapes are kept per device: with two
+    or more cards, both cluster kernels run on card 1, card 0 and card 1
+    again, each equal to its plain version on that card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    case = wl.class_edge_case("n10007")
+    pack = wl.pack_edge_case("n10007_spread")
+    for dev in ("cuda:1", "cuda:0", "cuda:1"):
+        args = [torch.as_tensor(a).to(dev) for a in (
+            case.avail, case.total, case.alive, case.demands, case.counts,
+            case.prefs)]
+        want, want_avail = tp.schedule_classes_plain(
+            *[a.clone() for a in args], 0.5)
+        got, got_avail = tp.schedule_classes(*[a.clone() for a in args], 0.5)
+        pargs = [torch.as_tensor(a).to(dev) for a in (
+            pack.avail, pack.total, pack.alive, pack.demands)]
+        assert torch.equal(pk.pack(*pargs, pack.mode),
+                           pk.pack_plain(*pargs, pack.mode))
+        torch.cuda.synchronize(dev)
+        assert torch.equal(got, want) and torch.equal(got_avail, want_avail)
