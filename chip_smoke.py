@@ -86,8 +86,14 @@ Phases, each fatal on failure:
    resources, 8 classes, 1,000,000 tasks; 512 bundles; 64 groups x 8
    bundles with k = 128). Each kernel (schedule_classes, pg_pack,
    pg_pack_batch) held against its plain version exactly, then timed by
-   CUDA events beside the plain version on the card and the launch floor.
-   Then the main path, with the launch counts set to 0 just before it:
+   CUDA events beside the plain version on the card and the launch floor;
+   every edge shape of ``workload``'s three sets exactly against plain;
+   pg_pack_batch and its ranking alone also at 40,000 nodes and at
+   ``solve_many``'s recorded 16,384-row view, beside
+   ``torch.sort(stable=True)`` of the same keys into outputs allocated
+   once (``torch.argsort``'s own call), each the least of three passes.
+   Then the main path,
+   with the launch counts set to 0 just before it:
    ``TpuSchedulingPolicy.schedule_dense`` with the host expansion to
    per-task nodes (tasks/s), ``schedule_batch`` of 4,096 requests over a
    ClusterResourceManager of 1,000 nodes through
@@ -1755,9 +1761,24 @@ def sched_launch_shape(program, n, r, b=0):
     return dict(zip(keys, (int(x) for x in out)))
 
 
+def s3_launch_shape(n, r, b, k, lib=None):
+    """The launch shape ``scheduler.cu`` picks for pg_pack_batch at n x r,
+    b bundles, k candidates a group."""
+    lib = lib or pk._kernel_lib()
+    lib.pg_pack_batch_shape.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pg_pack_batch_shape.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    check(lib.pg_pack_batch_shape(n, r, b, k, out) == 0,
+          "pg_pack_batch_shape refused its arguments")
+    keys = ("ctas", "threads", "smem_bytes", "slices_in_smem",
+            "clusters_held", "keys_in_smem", "groups_in_smem")
+    return dict(zip(keys, (int(x) for x in out)))
+
+
 def sched_edge_sweep():
-    """Every edge shape of ``workload.class_edge_cases`` and
-    ``pack_edge_cases`` through the kernels on the card, held exactly
+    """Every edge shape of ``workload.class_edge_cases``,
+    ``pack_edge_cases`` and ``batch_edge_cases`` through the kernels on
+    the card (``pg_pack_batch``'s ranking alone too), held exactly
     against the plain versions on the same inputs."""
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -1786,6 +1807,19 @@ def sched_edge_sweep():
                          "shape": [list(case.avail.shape),
                                    int(case.demands.shape[0])],
                          "equal": torch.equal(got, want)})
+    for case in swl.batch_edge_cases():
+        args = [torch.as_tensor(a).to(dev) for a in (
+            case.avail, case.total, case.alive, case.demands, case.valid)]
+        want = pk.pack_batch_plain(*args, case.mode, case.k)
+        got = pk.pack_batch_cuda(*args, case.mode, case.k)
+        ranked = pk.rank_nodes_cuda(*args[:3], case.mode)
+        torch.cuda.synchronize()
+        compared.append({"kernel": "pg_pack_batch", "case": case.name,
+                         "shape": [list(case.avail.shape),
+                                   list(case.demands.shape[:2]), case.k],
+                         "equal": torch.equal(got, want) and torch.equal(
+                             ranked, pk.rank_nodes_plain(*args[:3],
+                                                         case.mode))})
     for c in compared:
         print(f"edge {c['kernel']} {c['case']} {c['shape']}: kernel == plain "
               f"{c['equal']}")
@@ -1795,6 +1829,100 @@ def sched_edge_sweep():
     print(f"edge sweep: {len(compared)} cases, all kernel == plain, "
           f"{seconds:.2f} s with the plain versions")
     return {"cases": compared, "s": seconds}
+
+
+def s3_rank_runner(avail, total, alive, mode):
+    """One launch of ``pg_pack_batch``'s ranking alone (``pg_pack_rank``)
+    into scratch allocated once, for timing."""
+    n, r = avail.shape
+    ranked, _ = pk._batch_scratch(n, r, 0, 0, 1, avail.device)
+    lib = pk._kernel_lib()
+
+    def run():
+        check(lib.pg_pack_rank(
+            avail.data_ptr(), total.data_ptr(), alive.data_ptr(), n, r,
+            pk.MODES[mode], ranked.data_ptr(),
+            torch.cuda.current_stream().cuda_stream) == 0,
+            "pg_pack_rank launch failed")
+    return run
+
+
+def s3_batch_runner(avail, total, alive, demands, valid, mode, k):
+    """One ``pg_pack_batch`` entry into scratch and output allocated once,
+    for timing the kernels without the wrapper's allocations."""
+    n, r = avail.shape
+    g, b = demands.shape[0], demands.shape[1]
+    ranked, slots = pk._batch_scratch(n, r, g, b, k, avail.device)
+    out = torch.empty((g, b + 1), dtype=torch.int32, device=avail.device)
+    lib = pk._kernel_lib()
+
+    def run():
+        check(lib.pg_pack_batch(
+            avail.data_ptr(), total.data_ptr(), alive.data_ptr(),
+            demands.data_ptr(), valid.data_ptr(), n, r, g, b, k,
+            pk.MODES[mode], ranked.data_ptr(), slots.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0,
+            "pg_pack_batch launch failed")
+    return run
+
+
+def s3_rank_keys(avail, total, alive, mode):
+    """The ranking's keys as the plain version sorts them: base score,
+    INF for a dead row."""
+    util = pk._util(avail, total)
+    return torch.where(alive, -util if mode == "pack" else util,
+                       torch.tensor(float("inf"), device=avail.device))
+
+
+def s3_sort_runner(avail, total, alive, mode):
+    """``torch.sort(stable=True)`` of the ranking's keys into outputs
+    allocated once: the call ``torch.argsort(stable=True)`` makes, without
+    its allocations, for timing beside the ranking's runner."""
+    keys = s3_rank_keys(avail, total, alive, mode)
+    values, order = torch.empty_like(keys), torch.empty(
+        keys.shape, dtype=torch.long, device=keys.device)
+
+    def run():
+        torch.sort(keys, stable=True, out=(values, order))
+    return run
+
+
+def least_ms(fn, iters: int, passes: int = 3) -> float:
+    """The least of ``passes`` readings of ``time_ms(fn, iters)``."""
+    return min(time_ms(fn, iters) for _ in range(passes))
+
+
+def s3_at(label, avail, total, alive, demands, valid, mode, k):
+    """S3 on one input, on the card: the entry (``pack_batch_cuda``) and
+    its ranking alone, each held exactly against the plain version, then
+    their kernels timed with CUDA events (scratch allocated once) beside
+    ``torch.sort(stable=True)`` of the same keys into outputs allocated
+    once (the ranking only; the port never calls it), each the least of
+    three passes."""
+    got = pk.pack_batch_cuda(avail, total, alive, demands, valid, mode, k)
+    ranked = pk.rank_nodes_cuda(avail, total, alive, mode)
+    torch.cuda.synchronize()
+    equal = (torch.equal(got, pk.pack_batch_plain(avail, total, alive,
+                                                  demands, valid, mode, k))
+             and torch.equal(ranked, pk.rank_nodes_plain(avail, total, alive,
+                                                         mode)))
+    check(equal, f"pg_pack_batch at {label} differs from its plain version")
+    out = {"nodes": int(avail.shape[0]), "groups": int(demands.shape[0]),
+           "bundles": int(demands.shape[1]), "k": k, "mode": mode,
+           "equal": equal,
+           "ms": least_ms(s3_batch_runner(avail, total, alive, demands,
+                                          valid, mode, k), 20),
+           "rank_ms": least_ms(s3_rank_runner(avail, total, alive, mode),
+                               20),
+           "argsort_ms": least_ms(s3_sort_runner(avail, total, alive, mode),
+                                  20)}
+    print(f"pg_pack_batch at {label} ({out['nodes']} nodes, "
+          f"{out['groups']} x {out['bundles']} bundles, k {k}, {mode}): "
+          f"kernel == plain {equal}; {out['ms'] * 1e3:.1f} us, its ranking "
+          f"alone {out['rank_ms'] * 1e3:.1f} us, torch.sort(stable=True) "
+          f"of the same keys {out['argsort_ms'] * 1e3:.1f} us (least of "
+          f"three passes)")
+    return out
 
 
 def phase_scheduler():
@@ -1854,10 +1982,32 @@ def phase_scheduler():
     # shared memory are in phase 1's report), then every edge shape.
     shapes = {"schedule_classes": sched_launch_shape(0, n, r),
               "pg_pack": sched_launch_shape(1, tp._bucket(n), r,
-                                            pg_demands.shape[0])}
+                                            pg_demands.shape[0]),
+              "pg_pack_batch": s3_launch_shape(
+                  tp._bucket(n), r, batch_demands.shape[1], swl.PG_TOPK)}
     for key, shape in shapes.items():
         print(f"{key} launch shape: {shape}")
     edges = sched_edge_sweep()
+
+    # S3 at the benchmark's shape and at 40,000 nodes (past 16,384 rows,
+    # where a one-CTA sort would leave shared memory), with its ranking
+    # alone.
+    w40 = swl.workload(np.random.RandomState(42), 40_000, 1000)
+    big = [torch.as_tensor(a).to(dev) for a in (w40.avail, w40.total,
+                                                w40.alive)]
+    big_demands = torch.as_tensor(w40.batch_demands).to(dev)
+    for mode in pk.MODES:
+        s3_big = pk.pack_batch_cuda(*big, big_demands, valid, mode,
+                                    swl.PG_TOPK)
+        check(torch.equal(s3_big, pk.pack_batch_plain(
+            *big, big_demands, valid, mode, swl.PG_TOPK)),
+            f"pg_pack_batch {mode} at 40,000 nodes differs from its plain "
+            f"version")
+    s3_shapes = {
+        "bench": s3_at("the benchmark's shape", avail, total, alive,
+                       batch_demands, valid, "spread", swl.PG_TOPK),
+        "n40000": s3_at("40,000 nodes", *big, big_demands, valid, "spread",
+                        swl.PG_TOPK)}
 
     # Times on the card: kernel (CUDA events, avail refreshed before each
     # schedule_classes launch, which updates it in place), plain version.
@@ -1877,9 +2027,8 @@ def phase_scheduler():
             avail, total, alive, pg_demands, "spread"), 10), time_ms(
             lambda: pk.pack_plain(avail, total, alive, pg_demands, "spread"),
             2, warmup=1)),
-        "pg_pack_batch": (time_ms(lambda: pk.pack_batch_cuda(
-            avail, total, alive, batch_demands, valid, "spread",
-            swl.PG_TOPK), 10), time_ms(lambda: pk.pack_batch_plain(
+        "pg_pack_batch": (s3_shapes["bench"]["ms"], time_ms(
+            lambda: pk.pack_batch_plain(
                 avail, total, alive, batch_demands, valid, "spread",
                 swl.PG_TOPK), 2, warmup=1))}
     trip_ms, empty_ms, issue_ms = launch_floor_ms()
@@ -1895,7 +2044,7 @@ def phase_scheduler():
     # The bound: the bytes, plus the device floor of each launch the entry
     # makes, measured as the kernel times are (back to back, CUDA events).
     launches_per_entry = {"schedule_classes": 1, "pg_pack": 1,
-                          "pg_pack_batch": 2}
+                          "pg_pack_batch": pk.BATCH_LAUNCHES}
     rows = {}
     for name, (kern_ms, plain_ms) in times.items():
         bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
@@ -1959,7 +2108,7 @@ def phase_scheduler():
             many_s.append(time.perf_counter() - t0)
         counts_run = scheduler_launch_counts()
     print(f"scheduler main path launches (schedule_classes, pg_pack, "
-          f"pg_pack_batch; two launches a pack_batch_cuda call): "
+          f"pg_pack_batch; {pk.BATCH_LAUNCHES} a pack_batch_cuda call): "
           f"{counts_run}")
     check(all(c > 0 for c in counts_run),
           f"a scheduler kernel was not launched on the main path: "
@@ -1974,6 +2123,9 @@ def phase_scheduler():
     compared = recorder.check_against_plain()
     check({c["kernel"] for c in compared} == set(SCHED_PLAIN),
           f"the recorder missed a kernel: {compared}")
+    view = [c for c in recorder.calls if c[0] == "pack_batch_cuda"]
+    check(len(view) == 1, "solve_many's kernel call not recorded")
+    s3_shapes["view"] = s3_at("solve_many's 16,384-row view", *view[0][1])
     cpu_results = tp.TpuSchedulingPolicy(device="cpu").schedule_batch(
         cluster_small, requests)
     same_nodes = ([res.node_id for res in results]
@@ -2058,6 +2210,7 @@ def phase_scheduler():
         "launch_round_trip_ms": trip_ms, "empty_launch_ms": empty_ms,
         "empty_launch_issue_ms": issue_ms,
         "launch_shapes": shapes, "edge_sweep": edges,
+        "pg_pack_batch_shapes": s3_shapes,
         "launches": dict(zip(SCHEDULER_KERNELS, counts_run)),
         "kernels": rows}
     print(f"scheduler: {tasks_s:.1f} tasks/s with the host expansion "
@@ -5830,6 +5983,7 @@ def main() -> int:
             "variant": "bf16: wgmma + TMA; fp32: CUDA-core FMA",
         })
     sched_src = "ray_tpu/_private/scheduler"
+    s3_shapes = scheduler["pg_pack_batch_shapes"]
     for key, replaces, fn in (
             ("schedule_classes", f"{sched_src}/tpu_policy.py:76",
              "_schedule_classes_kernel"),
@@ -5858,15 +6012,23 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": "bytes",
             "bytes_bound_ms": k["bytes_bound_ms"],
             "launch_floor_ms": k["launch_floor_ms"],
-            "library_ms": None,
+            "library_ms": (s3_shapes["bench"]["argsort_ms"]
+                           if key == "pg_pack_batch" else None),
+            **({"library_is": "torch.sort(stable=True) of the same "
+                              "10,000 base-score keys into outputs "
+                              "allocated once (torch.argsort's call), "
+                              "least of three passes: the ranking only",
+                "ms_by_shape": s3_shapes} if key == "pg_pack_batch" else {}),
             "variant": {
                 "schedule_classes": "one thread-block cluster: node slices "
                                     "in shared memory, sums by st.async "
                                     "exchanges, merge-path ranking",
                 "pg_pack": "one thread-block cluster: rows and util in "
                            "shared memory, argmin by st.async exchanges",
-                "pg_pack_batch": "one CTA of 1024 threads (ranking), then "
-                                 "one CTA per group"}[key],
+                "pg_pack_batch": "one thread-block cluster: merge-path "
+                                 "ranking of sorted slices, then a warp a "
+                                 "group, cached util, in a second "
+                                 "launch"}[key],
             "launch_shape": scheduler["launch_shapes"].get(key),
         })
     print(json.dumps({"kernels": kernels}))

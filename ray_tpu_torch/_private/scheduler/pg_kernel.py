@@ -9,11 +9,11 @@ through the kernel, which launches or raises):
 - ``pack`` (``pg_pack``, for ``_pack_kernel``): one group, a sequential
   scan over its bundles, each step scoring all N nodes against the
   carried availability;
-- ``pack_batch`` (``pg_pack_rank`` then ``pg_pack_batch``, for
-  ``_pack_batch_kernel``): many groups in one entry. Nodes are ranked once
-  by the strategy's score and dealt round-robin across groups; each
-  group's scan then scores only its k candidates. A group whose top-k
-  solve fails re-solves on the single-group path host-side.
+- ``pack_batch`` (``pg_pack_batch``, for ``_pack_batch_kernel``): many
+  groups in one entry. Nodes are ranked once by the strategy's score and
+  dealt round-robin across groups; each group's scan then scores only its
+  k candidates. A group whose top-k solve fails re-solves on the
+  single-group path host-side.
 
 Strategies: PACK (most-utilized feasible node first), SPREAD
 (least-utilized, preferring nodes unused by this group), STRICT_SPREAD
@@ -25,6 +25,7 @@ programs agree exactly.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,8 +44,13 @@ _EPS = 1e-6
 _SPREAD_PENALTY = 1e3
 MODES = {"pack": 0, "spread": 1, "strict_spread": 2}
 
-# Kernel launches since the last reset: one a ``pack_cuda`` call, two a
-# ``pack_batch_cuda`` call (``pg_pack_rank``, then ``pg_pack_batch``).
+# Kernel launches a ``pack_batch_cuda`` call makes: the ranking's
+# cluster, then the groups' grid (``S3_FUSED`` false in ``scheduler.cu``).
+BATCH_LAUNCHES = 2
+
+# Kernel launches since the last reset: one a ``pack_cuda`` call,
+# BATCH_LAUNCHES a ``pack_batch_cuda`` call, one a ``rank_nodes_cuda``
+# call.
 launches_pack = 0
 launches_pack_batch = 0
 
@@ -113,10 +119,10 @@ def rank_nodes_plain(avail, total, alive, mode: str) -> torch.Tensor:
 
 def pack_batch_plain(avail, total, alive, demands, valid, mode: str,
                      k: int) -> torch.Tensor:
-    """What ``pg_pack_rank`` and ``pg_pack_batch`` compute, with the
-    output of ``_pack_batch_kernel``: int32 [G, B+1], the global node of
-    each bundle (-1 unplaced or padding) and each group's all-placed
-    flag. demands fp32 [G, B, R] (zero rows pad), valid bool [G, B]."""
+    """What ``pg_pack_batch`` computes, with the output of
+    ``_pack_batch_kernel``: int32 [G, B+1], the global node of each bundle
+    (-1 unplaced or padding) and each group's all-placed flag. demands
+    fp32 [G, B, R] (zero rows pad), valid bool [G, B]."""
     n = avail.shape[0]
     g, b = demands.shape[0], demands.shape[1]
     dev = avail.device
@@ -154,8 +160,11 @@ def _kernel_lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.pg_pack.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 3
         lib.pg_pack_batch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 4
-        lib.pg_pack.restype = ctypes.c_int
-        lib.pg_pack_batch.restype = ctypes.c_int
+        lib.pg_pack_rank.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 2
+        lib.pg_pack_batch_scratch.argtypes = [i32] * 5 + [ptr]
+        for fn in (lib.pg_pack, lib.pg_pack_batch, lib.pg_pack_rank,
+                   lib.pg_pack_batch_scratch):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -202,10 +211,32 @@ def pack_cuda(avail, total, alive, demands, mode: str) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _scratch_sizes(n, r, b, k):
+    """(ints of ``ranked``, floats of ``slots`` a group) that
+    ``pg_pack_batch_scratch`` gives at this shape."""
+    sizes = (ctypes.c_longlong * 2)()
+    rc = _kernel_lib().pg_pack_batch_scratch(n, r, 1, b, k, sizes)
+    if rc != 0:
+        raise ValueError(f"pg_pack_batch takes no scratch for n={n}, r={r}, "
+                         f"b={b}, k={k}")
+    return sizes[0], sizes[1]
+
+
+def _batch_scratch(n, r, g, b, k, device):
+    """``pg_pack_batch``'s scratch: int32 ``ranked`` (the order, then the
+    sorted slices where they stay in global memory) and fp32 ``slots``
+    (the groups' state where it does not fit in shared memory)."""
+    ranked, per_group = _scratch_sizes(n, r, b, k)
+    return (torch.empty(ranked, dtype=torch.int32, device=device),
+            torch.empty(max(g * per_group, 1), dtype=torch.float32,
+                        device=device))
+
+
 def pack_batch_cuda(avail, total, alive, demands, valid, mode: str,
                     k: int) -> torch.Tensor:
-    """``pg_pack_rank`` then ``pg_pack_batch``: same contract as
-    ``pack_batch_plain``, two launches."""
+    """``pg_pack_batch``: same contract as ``pack_batch_plain``,
+    BATCH_LAUNCHES launches."""
     global launches_pack_batch
     _check(avail, total, alive, demands, valid)
     n, r = avail.shape
@@ -214,13 +245,8 @@ def pack_batch_cuda(avail, total, alive, demands, valid, mode: str,
         raise ValueError(f"need 1 <= k <= N and valid [G, B], got k={k}, "
                          f"N={n}, valid {tuple(valid.shape)}")
     out = torch.empty((g, b + 1), dtype=torch.int32, device=avail.device)
-    # per group: k slots of candidate availability, node id and used flag
-    slots = torch.empty(g * k * (r + 2), dtype=torch.float32,
-                        device=avail.device)
-    # the ranking, then the sort keys when N pads past the shared-memory sort
-    ranked = torch.empty(2 * _bucket(n, minimum=1), dtype=torch.int32,
-                         device=avail.device)
     with torch.cuda.device(avail.device):
+        ranked, slots = _batch_scratch(n, r, g, b, k, avail.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel_lib().pg_pack_batch(
             avail.data_ptr(), total.data_ptr(), alive.data_ptr(),
@@ -230,8 +256,27 @@ def pack_batch_cuda(avail, total, alive, demands, valid, mode: str,
     if rc != 0:
         raise RuntimeError(f"pg_pack_batch kernel launch failed: CUDA "
                            f"error {rc}")
-    launches_pack_batch += 2
+    launches_pack_batch += BATCH_LAUNCHES
     return out
+
+
+def rank_nodes_cuda(avail, total, alive, mode: str) -> torch.Tensor:
+    """``pg_pack_batch``'s ranking alone (one launch of its cluster
+    kernel with no groups): same contract as ``rank_nodes_plain``."""
+    global launches_pack_batch
+    _check(avail, total, alive, avail[:0])     # no demands
+    n, r = avail.shape
+    with torch.cuda.device(avail.device):
+        ranked, _ = _batch_scratch(n, r, 0, 0, 1, avail.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel_lib().pg_pack_rank(
+            avail.data_ptr(), total.data_ptr(), alive.data_ptr(), n, r,
+            MODES[mode], ranked.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"pg_pack_rank kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches_pack_batch += 1
+    return ranked[:n].long()
 
 
 def pack(avail, total, alive, demands, mode: str) -> torch.Tensor:

@@ -82,6 +82,20 @@ def workload(rng, n_nodes: int = N_NODES, n_tasks: int = N_TASKS
 # Edge shapes of the scheduler kernels
 # --------------------------------------------------------------------------
 
+class BatchCase(NamedTuple):
+    """One ``pg_pack_batch`` input: avail, total, alive as above, fp32
+    demands [G, B, R] (zero rows pad), bool valid [G, B], the strategy's
+    mode and the candidates a group, k."""
+    name: str
+    avail: np.ndarray
+    total: np.ndarray
+    alive: np.ndarray
+    demands: np.ndarray
+    valid: np.ndarray
+    mode: str
+    k: int
+
+
 class ClassCase(NamedTuple):
     """One ``schedule_classes`` input: fp32 avail and total [N, R], bool
     alive [N], fp32 demands [K, R], int32 counts and prefs [K]."""
@@ -152,6 +166,23 @@ _MODES = ("pack", "spread", "strict_spread")
 PACK_EDGE_NAMES = tuple(f"{s[0]}_{m}" for s in _PACK_SHAPES for m in _MODES) \
     + tuple(f"identical_rows_{m}" for m in _MODES) \
     + ("fit_nowhere_spread", "strict_more_than_alive")
+
+
+# (name, nodes, resources, groups, bundles, candidates k, dead share,
+# seed), each in three modes: pg_pack_batch's shapes
+_BATCH_SHAPES = (
+    ("n1_k1", 1, 4, 2, 3, 1, 0.0, 21), ("n33", 33, 4, 4, 6, 8, 0.2, 22),
+    ("n10007", 10007, 4, 64, 8, 128, 0.05, 23),
+    ("n16384", 16384, 4, 64, 8, 128, 0.0, 24),
+    ("n16385", 16385, 4, 64, 8, 128, 0.0, 25),
+    ("n70000_global", 70000, 4, 64, 8, 128, 0.0, 26),
+    ("n300000_global_sort", 300000, 4, 64, 8, 128, 0.0, 33),
+    ("r1", 700, 1, 16, 8, 32, 0.0, 27), ("r64", 2000, 64, 32, 6, 64, 0.1, 28),
+    ("g1", 5000, 4, 1, 16, 256, 0.1, 29),
+    ("g1024_aliased", 500, 4, 1024, 4, 16, 0.1, 30))
+_BATCH_SPECIAL = ("identical_rows", "pack_util0", "padding_nowhere")
+BATCH_EDGE_NAMES = tuple(f"{s}_{m}" for s in (
+    *(shape[0] for shape in _BATCH_SHAPES), *_BATCH_SPECIAL) for m in _MODES)
 
 
 def class_edge_case(name: str) -> ClassCase:
@@ -233,3 +264,62 @@ def pack_edge_case(name: str) -> PackCase:
 
 def pack_edge_cases():
     return [pack_edge_case(name) for name in PACK_EDGE_NAMES]
+
+
+def _groups(rng, g, b, r):
+    """Bundles of 0.5-4 CPU (and 0-4 of resource 2), the last bundles of
+    every fifth group padding, as solve_many pads them."""
+    demands = np.zeros((g, b, r), np.float32)
+    demands[:, :, 0] = rng.choice([0.5, 1, 2, 4], (g, b))
+    if r > 2:
+        demands[:, :, 2] = rng.choice([0, 1, 4], (g, b))
+    valid = np.ones((g, b), bool)
+    valid[::5, b - b // 3:] = False
+    demands[~valid] = 0.0
+    return demands, valid
+
+
+def batch_edge_case(name: str) -> BatchCase:
+    """One of the ``pg_pack_batch`` shapes (BATCH_EDGE_NAMES): one node,
+    slices of odd sizes, either side of 16,384 rows, slices past the
+    staging limit searched in global memory (70,000) and too large to sort
+    in shared memory (300,000), one and 64 resources, one group and 1,024
+    groups
+    whose k G candidates wrap many times around N (aliased slots),
+    identical rows (ties broken by index), PACK rows at util 0 (-0 against
+    +0), a group all padding and bundles that fit nowhere."""
+    for shape_name, n, r, g, b, k, dead, seed in _BATCH_SHAPES:
+        for mode in _MODES:
+            if f"{shape_name}_{mode}" == name:
+                rng = np.random.RandomState(seed)
+                avail, total, alive = _cluster(rng, n, r, dead)
+                demands, valid = _groups(rng, g, b, r)
+                return BatchCase(name, avail, total, alive, demands, valid,
+                                 mode, k)
+    special, mode = next(((sp, m) for sp in _BATCH_SPECIAL for m in _MODES
+                          if f"{sp}_{m}" == name), (None, None))
+    rng = np.random.RandomState(31)
+    if special == "identical_rows":
+        n = 600
+        total = np.tile(np.array([[8, 0, 32, 1]], np.float32), (n, 1))
+        demands, valid = _groups(rng, 24, 8, 4)
+        return BatchCase(name, total.copy(), total, np.ones(n, bool),
+                         demands, valid, mode, 32)
+    if special == "pack_util0":
+        avail, total, alive = _cluster(rng, 3000, 4, 0.05)
+        idle = rng.rand(3000) < 0.5      # util exactly 0: -0 under PACK
+        avail[idle] = total[idle]
+        demands, valid = _groups(rng, 64, 8, 4)
+        return BatchCase(name, avail, total, alive, demands, valid, mode, 64)
+    if special == "padding_nowhere":
+        avail, total, alive = _cluster(rng, 900, 4)
+        demands, valid = _groups(rng, 16, 8, 4)
+        valid[3] = False                 # a group all padding
+        demands[3] = 0.0
+        demands[5, ::2, 0] = 1000.0      # bundles that fit nowhere
+        return BatchCase(name, avail, total, alive, demands, valid, mode, 32)
+    raise KeyError(name)
+
+
+def batch_edge_cases():
+    return [batch_edge_case(name) for name in BATCH_EDGE_NAMES]

@@ -95,7 +95,7 @@
 //   row layout.
 //
 // pg_pack: each CTA keeps its rows' avail, total, 1 / max(total, EPS),
-// alive, used, base util (pack_score's expression) and the bundles'
+// alive, used, base util (row_util's expression) and the bundles'
 // demands in shared memory (1,024 rows a CTA at the solver's 16,384-row
 // view, ~23 KB). A row's score does not depend on the bundle, only its
 // feasibility does (a + EPS >= d, alive, !used for STRICT_SPREAD: no
@@ -112,6 +112,35 @@
 // scoring, a barrier and the exchange a bundle, ~1.9 us on an H100 (16
 // CTAs: ~0.97 ms for 512 bundles against ~1.27 ms for 8 and ~1.85 ms for
 // 4; 1024 threads a CTA were slower).
+//
+// pg_pack_batch (S3): the ranking of all N nodes, then G groups of B
+// bundles over k candidates each. The first design sorted all N (key,
+// index) pairs with a bitonic network in one CTA (a barrier a stage; in
+// global memory past 16,384 keys) and gave each group a CTA of 256
+// threads, its slots in global scratch and 4-5 block barriers a bundle:
+// ~330 us at the benchmark's shape, ~310 of them the sort (2.1 ms at
+// 40,000 nodes). Nothing here is bound by bytes (~0.1 us); each part is a
+// chain of dependent steps. The ranking is one cluster with S1's tools
+// (sort_slice, push_slice, merge_counts): each CTA keys its slice (the
+// base score, INF for dead rows, packed with the index; each node's util
+// kept in `ranked` for the groups), sorts it, pushes it to the other CTAs
+// and places each key by merge path; where the other slices do not fit
+// beside its own, they are searched in global memory. Then a grid of
+// warps, one a group: lane l keeps slots l, l + 32, ... (4 at k = 128),
+// their copies of avail and total, util, node and flags in shared memory
+// (in `slots` where they do not fit). Per bundle a lane scores its slots
+// from the cached util (no division, no branch), two __reduce_min_sync take
+// the least (score, slot) key, which is argmin's first least slot, and the
+// winner's lane commits it and recomputes its util; no barrier, and no
+// global memory but the first loads. Its loops are not unrolled: the pass
+// runs once, so code size is fetch time (an unrolled first version spent
+// ~2 us a bundle there). The grid is the ranking's programmatic dependent
+// launch: its CTAs start during the ranking, gather their bundles' demands
+// and wait (griddepcontrol) before they read the order. Two launches, not
+// one: the same solve inside the ranking's cluster (S3_FUSED) ties at 64
+// groups but runs 1,024 groups in rounds over the cluster's warps at twice
+// the time; clusters of 8 were slower at every shape
+// (ray_tpu_torch/tools/sched_design_sweep.py times all four).
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns a CUDA error code: 0, the launch's error, or
@@ -131,8 +160,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 1024;        // the S3 kernels' CTA
-constexpr int WARPS = THREADS / 32;
+constexpr int WARPS = 32;            // most warps of a CTA
 constexpr int CT = 512;              // most threads of a cluster kernel's CTA
 constexpr int CWARPS = CT / 32;
 constexpr int MAX_C = 16;            // most CTAs of a cluster
@@ -144,7 +172,6 @@ constexpr int LEVELS = 2;            // bisection levels a round
 // Values a cluster sum carries: a round's 2^LEVELS - 1 midpoints, and at
 // least the 3 of a class's opening sum.
 constexpr int MAX_NV = (1 << LEVELS) - 1 > 3 ? (1 << LEVELS) - 1 : 3;
-constexpr int SMEM_SORT_MAX = 16384;  // keys sorted in shared memory (128 KB)
 constexpr int BISECT_STEPS = 40;
 constexpr float EPS = 1e-6f;
 constexpr float UPPER_CLAMP = 1073741824.f;  // 2^30
@@ -183,60 +210,6 @@ __device__ float block_sum(float v, float* red) {
 // (a, ia) before (b, ib): ascending key, ties by index.
 __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
-}
-
-// The first index of the least key over the block: (key, index) reduced
-// by `before`, returned to every thread. `rk` and `ri` hold WARPS + 1
-// values of shared memory each.
-__device__ int block_argmin(float key, int idx, float* rk, int* ri) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float k2 = __shfl_xor_sync(FULL, key, off);
-    const int i2 = __shfl_xor_sync(FULL, idx, off);
-    if (before(k2, i2, key, idx)) key = k2, idx = i2;
-  }
-  if (lane == 0) rk[warp] = key, ri[warp] = idx;
-  __syncthreads();
-  if (warp == 0) {
-    const bool live = lane < (blockDim.x + 31) / 32;
-    key = live ? rk[lane] : INF;
-    idx = live ? ri[lane] : 0x7fffffff;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float k2 = __shfl_xor_sync(FULL, key, off);
-      const int i2 = __shfl_xor_sync(FULL, idx, off);
-      if (before(k2, i2, key, idx)) key = k2, idx = i2;
-    }
-    if (lane == 0) ri[WARPS] = idx;
-  }
-  __syncthreads();
-  const int best = ri[WARPS];
-  __syncthreads();
-  return best;
-}
-
-// Sorts p (a power of two) (key, index) pairs ascending by `before`: a
-// bitonic network, one barrier a stage. With unique indices the order is
-// total, so it is the stable argsort of the keys.
-__device__ void block_sort_pairs(float* key, int* idx, int p) {
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p; i += blockDim.x) {
-        const int l = i ^ j;
-        if (l > i) {
-          const float ki = key[i], kl = key[l];
-          const int ii = idx[i], il = idx[l];
-          const bool ascending = (i & k) == 0;
-          if (ascending == before(kl, il, ki, ii)) {
-            key[i] = kl, key[l] = ki;
-            idx[i] = il, idx[l] = ii;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // A float key and a row index as one unsigned 64-bit key of the order of
@@ -539,6 +512,79 @@ __host__ __device__ __forceinline__ int count_of(int n, int per, int rank) {
 }
 
 __host__ __device__ int slice_sort_size(int per) { return max(32, next_pow2(per)); }
+
+// ------------------------------------- merge-path ranking (S1 and S3)
+//
+// Each CTA sorts its slice's distinct packed keys; a key's place in the
+// cluster's stable order is its place in its slice plus, for every other
+// slice, the number of that slice's keys below it (a binary search). The
+// other slices are staged beside a CTA's own in shared memory ([C - 1,
+// spr] keys, by their place among the others: push_slice), or searched
+// where they are in global memory, `stride` keys apart.
+
+// Sorts the slice's cnt keys, padded to S with keys above all others.
+__device__ __forceinline__ void sort_slice(unsigned long long* skey, int cnt, int S) {
+  for (int i = cnt + threadIdx.x; i < S; i += blockDim.x) skey[i] = ~0ull;
+  __syncthreads();
+  cta_sort(skey, S);
+}
+
+// Rows of each other slice, by its place among the others.
+__device__ __forceinline__ void peer_lengths(int n, int per, int rank, int c, int (&len)[MAX_C]) {
+#pragma unroll
+  for (int gi = 0; gi < MAX_C; ++gi) len[gi] = gi < c - 1 ? count_of(n, per, gi < rank ? gi : gi + 1) : 0;
+}
+
+// Bytes that the other CTAs push into this one's staging area: their keys
+// and, with scans, their scans.
+__host__ __device__ uint32_t staged_bytes(int n, int per, int rank, int c, bool scans) {
+  uint32_t in = 0;
+  for (int o = 0; o < c; ++o) {
+    const int co = count_of(n, per, o);
+    if (o != rank) in += 8u * ((co + 1) & ~1) + (scans ? 4u * ((co + 3) & ~3) : 0u);
+  }
+  return in;
+}
+
+// Pushes this CTA's sorted keys (and its scan, unless null) into every
+// other CTA's staging area with bulk copies, counted on its `bar`; after a
+// barrier that follows their last write.
+__device__ __forceinline__ void push_slice(const unsigned long long* skey, const float* scan,
+                                           unsigned long long* stage_key, float* stage_scan,
+                                           int spr, int cnt, int rank, int c, uint64_t* bar) {
+  const int na = scan ? 2 : 1, tid = threadIdx.x;
+  if (tid < na * (c - 1) && cnt > 0) {
+    const int o = tid / na < rank ? tid / na : tid / na + 1;  // the receiver
+    const int at = rank < o ? rank : rank - 1;                // this slice there
+    const uint32_t to = cluster_addr(bar, o);
+    fence_proxy_async();
+    if (tid % na == 1)
+      bulk_push(cluster_addr(stage_scan + at * spr, o), scan, 4u * ((cnt + 3) & ~3), to);
+    else
+      bulk_push(cluster_addr(stage_key + at * spr, o), skey, 8u * ((cnt + 1) & ~1), to);
+  }
+}
+
+// at[gi]: the keys below `me` in the gi-th other slice. Staged, `peers` is
+// the staging area; else this CTA's keys in global memory.
+template <bool STAGED>
+__device__ __forceinline__ void merge_counts(unsigned long long me, int S, int rank,
+                                             const unsigned long long* peers, long long stride,
+                                             const int (&len)[MAX_C], int (&at)[MAX_C]) {
+#pragma unroll
+  for (int gi = 0; gi < MAX_C; ++gi) at[gi] = 0;
+  for (int step = S; step > 0; step >>= 1) {
+#pragma unroll
+    for (int gi = 0; gi < MAX_C; ++gi) {
+      const int next = at[gi] + step;
+      if (next <= len[gi]) {
+        const int o = gi < rank ? gi : gi + 1;
+        const unsigned long long* keys = STAGED ? peers + gi * stride : peers + (o - rank) * stride;
+        if (keys[next - 1] < me) at[gi] = next;
+      }
+    }
+  }
+}
 
 // ------------------------------------------------- S1: schedule_classes
 
@@ -896,11 +942,7 @@ schedule_classes_cluster(float* __restrict__ avail, const float* __restrict__ to
   // other CTA with bulk copies; these are the bytes a CTA receives at each
   // class.
   const int spr = (per + 3) & ~3;  // a staged slice's row
-  uint32_t pushed_in = 0;
-  for (int o = 0; o < C; ++o) {
-    const int co = count_of(n, per, o);
-    if (o != rank) pushed_in += 8u * ((co + 1) & ~1) + 4u * ((co + 3) & ~3);
-  }
+  const uint32_t pushed_in = staged_bytes(n, per, rank, C, true);
   if (SMEM && tid == 0) {
     mbar_init(&stage_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1050,22 +1092,11 @@ schedule_classes_cluster(float* __restrict__ avail, const float* __restrict__ to
         ns.skey[i] = pack_key(u, base + i);
         sum_xl += xl;
       }
-      for (int i = cnt + tid; i < S; i += T) ns.skey[i] = ~0ull;
-      __syncthreads();
-      cta_sort(ns.skey, S);
+      sort_slice(ns.skey, cnt, S);
       for (int p = tid; p < cnt; p += T) ns.scan[p] = ns.delta[key_index(ns.skey[p]) - base];
       __syncthreads();
       block_inclusive_scan(ns.scan, ns.scan, cnt, red);
-      if (SMEM && tid < 2 * (C - 1) && cnt > 0) {
-        const int o = (tid >> 1) < rank ? tid >> 1 : (tid >> 1) + 1;  // the receiver
-        const int at = rank < o ? rank : rank - 1;                      // this slice there
-        const uint32_t bar = cluster_addr(&stage_bar, o);
-        fence_proxy_async();
-        if (tid & 1)
-          bulk_push(cluster_addr(ns.stage_scan + at * spr, o), ns.scan, 4u * ((cnt + 3) & ~3), bar);
-        else
-          bulk_push(cluster_addr(ns.stage_key + at * spr, o), ns.skey, 8u * ((cnt + 1) & ~1), bar);
-      }
+      if (SMEM) push_slice(ns.skey, ns.scan, ns.stage_key, ns.stage_scan, spr, cnt, rank, C, &stage_bar);
       v[0] = sum_xl, v[1] = sum_cap;
       cluster_sum<2>(v, t_sum, wpart, xbuf, xbar);  // every slice sorted and scanned
       const float deficit = fmaxf(__fsub_rn(remaining, v[0]), 0.f);
@@ -1090,29 +1121,13 @@ schedule_classes_cluster(float* __restrict__ avail, const float* __restrict__ to
         if (tid == 0) mbar_expect(&stage_bar, pushed_in);
         ++merges;
       }
-      int len[MAX_C];  // rows of each other slice, by its place among the others
-#pragma unroll
-      for (int gi = 0; gi < MAX_C; ++gi)
-        len[gi] = gi < C - 1 ? count_of(n, per, gi < rank ? gi : gi + 1) : 0;
+      int len[MAX_C];
+      peer_lengths(n, per, rank, C, len);
       for (int p = tid; p < cnt; p += T) {
         const unsigned long long me = ns.skey[p];
         int at[MAX_C];
-#pragma unroll
-        for (int gi = 0; gi < MAX_C; ++gi) at[gi] = 0;
-        for (int step = S; step > 0; step >>= 1) {
-#pragma unroll
-          for (int gi = 0; gi < MAX_C; ++gi) {
-            const int next = at[gi] + step;
-            if (next <= len[gi]) {
-              const int o = gi < rank ? gi : gi + 1;
-              const unsigned long long* keys =
-                  SMEM ? ns.stage_key + gi * spr
-                       : reinterpret_cast<const unsigned long long*>(
-                             reinterpret_cast<const float*>(ns.skey) + (o - rank) * region);
-              if (keys[next - 1] < me) at[gi] = next;
-            }
-          }
-        }
+        merge_counts<SMEM>(me, S, rank, SMEM ? ns.stage_key : ns.skey, SMEM ? spr : region / 2,
+                           len, at);
         int place = p;
         float cum = ns.scan[p];
 #pragma unroll
@@ -1209,13 +1224,6 @@ __device__ __forceinline__ float row_score(const float* a, float util, bool aliv
   }
   *can_out = can;
   return can ? score : INF;
-}
-
-// Feasibility and score of one row for one bundle, its utilization
-// computed here (the S3 kernels).
-__device__ __forceinline__ float pack_score(const float* a, const float* t, bool alive, bool used,
-                                            const float* d, int r, int mode, bool* can_out) {
-  return row_score(a, row_util(a, t, r), alive, used, d, r, mode, can_out);
 }
 
 // Demands a pg_pack CTA keeps in shared memory (more stay in global).
@@ -1432,117 +1440,366 @@ pg_pack_cluster(float* __restrict__ avail, const float* __restrict__ total,
   }
 }
 
-// ------------------------------------------- S3: pg_pack_rank, pg_pack_batch
+// ------------------------------------------------------ S3: pg_pack_batch
 
-// Nodes in the order of the strategy's base score, dead rows last: the
-// stable argsort that opens _pack_batch_kernel (:100-105). `ranked` holds
-// 2 p ints: the order, then the keys when p > SMEM_SORT_MAX.
-__global__ void __launch_bounds__(THREADS, 1)
-pg_pack_rank_kernel(const float* __restrict__ avail, const float* __restrict__ total,
-                    const uint8_t* __restrict__ alive, int n, int r, int mode, int* ranked) {
-  extern __shared__ float4 smem4[];
-  int p = 1;
-  while (p < n) p <<= 1;
-  float* key = p <= SMEM_SORT_MAX ? reinterpret_cast<float*>(smem4)
-                                  : reinterpret_cast<float*>(ranked + p);
-  int* idx = p <= SMEM_SORT_MAX ? reinterpret_cast<int*>(key + p) : ranked;
-  for (int i = threadIdx.x; i < p; i += blockDim.x) {
-    float k = INF;
-    if (i < n && alive[i]) {
-      float util = -INF;
-      for (int j = 0; j < r; ++j) {
-        const float t = total[i * r + j];
-        util = fmaxf(util, t > 0.f ? __fsub_rn(t, avail[i * r + j]) / fmaxf(t, EPS) : 0.f);
-      }
-      k = mode == 0 ? -util : util;
-    }
-    key[i] = k;
-    idx[i] = i;
-  }
-  __syncthreads();
-  block_sort_pairs(key, idx, p);
-  if (idx != ranked)
-    for (int i = threadIdx.x; i < n; i += blockDim.x) ranked[i] = idx[i];
+// The S3 design: the ranking and the groups' solves in one cluster launch
+// (true), or the ranking, then a grid of CTAs of GROUP_WARPS warps (false;
+// pg_kernel.py's BATCH_LAUNCHES counts these two launches). Only copies
+// that tools/sched_design_sweep.py builds set it true.
+constexpr bool S3_FUSED = false;
+constexpr int GROUP_WARPS = 4;
+
+// A cluster barrier in two halves: arrive (release), later wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-// One CTA per group: the group's k candidate slots (ranks g, g+G, ...,
-// modulo N) with their own copy of the availability, scanned over its
-// bundles (:107-162). `slots` holds, per group, k x r availability values,
-// then k node ids and k used flags (as floats' bits).
-__global__ void __launch_bounds__(256, 1)
-pg_pack_batch_kernel(const float* __restrict__ avail, const float* __restrict__ total,
-                     const uint8_t* __restrict__ alive, const float* __restrict__ demands,
-                     const uint8_t* __restrict__ valid, int n, int r, int g, int b, int k,
-                     int mode, const int* __restrict__ ranked, float* __restrict__ slots,
-                     int* __restrict__ out) {
-  __shared__ float rk[WARPS + 1];
-  __shared__ int ri[WARPS + 1];
-  __shared__ float sd[MAX_R];
-  __shared__ int chosen, ok_flag, all_ok;
-  const int tid = threadIdx.x, grp = blockIdx.x;
-  float* av = slots + static_cast<long long>(grp) * k * (r + 2);
-  int* cidx = reinterpret_cast<int*>(av + static_cast<long long>(k) * r);
-  int* used = cidx + k;
-  for (int j = tid; j < k; j += blockDim.x) {
-    const int node = ranked[(static_cast<long long>(j) * g + grp) % n];
-    cidx[j] = node;
-    used[j] = 0;
-    for (int c = 0; c < r; ++c) av[j * r + c] = avail[node * r + c];
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Node i's key in the ranking (:100-105): its util (row_util's
+// expression, its row read 4 values at a time, the loads before the
+// divisions; into *util), negated for PACK, INF for a dead row, with its
+// index.
+__device__ __forceinline__ unsigned long long rank_key(const float* __restrict__ avail,
+                                                       const float* __restrict__ total,
+                                                       const uint8_t* __restrict__ alive, int i,
+                                                       int r, int mode, float* util) {
+  const long long row = static_cast<long long>(i) * r;
+  float u = -INF;
+  for (int c = 0; c < r; c += 4) {
+    float a[4], t[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a[q] = c + q < r ? avail[row + c + q] : 0.f;
+      t[q] = c + q < r ? total[row + c + q] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c + q < r) u = fmaxf(u, t[q] > 0.f ? __fsub_rn(t[q], a[q]) / fmaxf(t[q], EPS) : 0.f);
   }
-  if (tid == 0) all_ok = 1;
-  __syncthreads();
+  *util = u;
+  return pack_key(alive[i] ? (mode == 0 ? -u : u) : INF, i);
+}
+
+// `ranked` holds the order [n], each node's util [n] (both to a multiple
+// of 4 words), then the sorted slices kept in global memory.
+__host__ __device__ long long order_ints(int n) { return (n + 3LL) & ~3LL; }
+
+// Floats of a row of a group's state: r, to a multiple of 4 (float4 loads).
+__host__ __device__ __forceinline__ int row4(int r) { return (r + 3) & ~3; }
+
+// Bytes of a group's state: its k slots' copies of their nodes'
+// availability and total [k, row4(r)], its bundles' demands [b, row4(r)],
+// the slots' util [k], node [k] and flags [k] (alive, used), the bundles'
+// valid [b]; a multiple of 16.
+__host__ __device__ long long group_bytes(int k, int r, int b) {
+  return (8LL * k * row4(r) + 4LL * k + 4LL * b * row4(r) + 5LL * k + b + 15) / 16 * 16;
+}
+
+constexpr uint8_t SLOT_ALIVE = 1, SLOT_USED = 2;
+
+struct GroupSlots {
+  float* av;
+  float* tt;
+  float* ut;
+  float* dm;
+  int* node;
+  uint8_t* fl;
+  uint8_t* val;
+};
+
+__device__ __forceinline__ GroupSlots group_slots(char* mem, int k, int r, int b) {
+  GroupSlots s;
+  s.av = reinterpret_cast<float*>(mem);  // rows of row4(r) floats, 16-byte aligned
+  s.tt = s.av + static_cast<long long>(k) * row4(r);
+  s.dm = s.tt + static_cast<long long>(k) * row4(r);
+  s.ut = s.dm + static_cast<long long>(b) * row4(r);
+  s.node = reinterpret_cast<int*>(s.ut + k);
+  s.fl = reinterpret_cast<uint8_t*>(s.node + k);
+  s.val = s.fl + k;
+  return s;
+}
+
+// Whether a slot's row a (row4(r) floats, padding 0) takes demand d (its
+// padding 0): a + EPS >= d wherever d > 0, row_score's test, without a
+// branch.
+__device__ __forceinline__ bool slot_fits(const float* a, const float* d, int r4) {
+  bool can = true;
+#pragma unroll 1
+  for (int c = 0; c < r4; c += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + c);
+    const float4 y = *reinterpret_cast<const float4*>(d + c);
+    can = can & (!(y.x > 0.f) | (__fadd_rn(x.x, EPS) >= y.x)) &
+          (!(y.y > 0.f) | (__fadd_rn(x.y, EPS) >= y.y)) &
+          (!(y.z > 0.f) | (__fadd_rn(x.z, EPS) >= y.z)) &
+          (!(y.w > 0.f) | (__fadd_rn(x.w, EPS) >= y.w));
+  }
+  return can;
+}
+
+// A slot's key for demand d: (can ? its row_score from the cached util :
+// INF, slot), and whether it can take d.
+__device__ __forceinline__ unsigned long long slot_key(const GroupSlots& s, int j, const float* d,
+                                                       int r4, int mode, bool* can_out) {
+  const uint8_t fl = s.fl[j];
+  const bool used = (fl & SLOT_USED) != 0;
+  const float u = s.ut[j];
+  const bool can = ((fl & SLOT_ALIVE) != 0) & !(mode == 2 & used) & slot_fits(s.av + j * r4, d, r4);
+  const float sc = mode == 0 ? -u : mode == 1 ? __fadd_rn(u, used ? SPREAD_PENALTY : 0.f) : u;
+  *can_out = can;
+  return pack_key(can ? sc : INF, j);
+}
+
+// Group grp's bundles (:107-162) by one warp, its state at `mem`
+// (group_slots): slots j < k hold ranks (j G + grp) mod n, lane l slots l,
+// l + 32, ... The state is gathered first, each step's loads in flight
+// together. The code is kept small (loops not unrolled): one pass runs
+// once per launch, so every instruction it issues is a first fetch. Per
+// bundle each lane scores its slots from their cached util
+// (slot_key: no division, no branch), two warp reductions (__reduce_min_sync
+// of the key's high word, then of the low word among the lanes holding the
+// least high word) take the least (score, slot) key, argmin's first least
+// slot (all infeasible: slot 0, unplaced); the winner's lane commits it,
+// marks it used and recomputes its util with row_util's expression. Where
+// the deal wraps (k G > n) slots alias, and every lane also marks each of
+// its slots that holds the chosen node (by node id, as :143-150 does). A
+// slot is its lane's alone, so nothing waits on a barrier.
+template <bool WAIT>
+__device__ __forceinline__ void solve_group(int grp, const float* __restrict__ avail,
+                            const float* __restrict__ total, const uint8_t* __restrict__ alive,
+                            const float* __restrict__ demands, const uint8_t* __restrict__ valid,
+                            int n, int r, int g, int b, int k, int mode, const int* ranked,
+                            char* mem, int* out) {
+  const int lane = threadIdx.x & 31, r4 = row4(r);
+  const GroupSlots s = group_slots(mem, k, r, b);
+  // The bundles' demands and valid flags first: they do not depend on the
+  // ranking, which a dependent launch waits for only here.
+  const float* dg = demands + static_cast<long long>(grp) * b * r;
+#pragma unroll 1
+  for (int e = lane; e < b * r4; e += 32) s.dm[e] = e % r4 < r ? dg[e / r4 * r + e % r4] : 0.f;
+#pragma unroll 1
+  for (int e = lane; e < b; e += 32) s.val[e] = valid[static_cast<long long>(grp) * b + e];
+  if (WAIT) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // The lane's slots four at a time, each step's loads in flight together:
+  // node ids, then alive, util (the ranking's) and the rows (16 bytes a
+  // load where r is a multiple of 4).
+  const float* util_of = reinterpret_cast<const float*>(ranked + order_ints(n));
+  const bool rows16 = (r & 3) == 0 && (reinterpret_cast<uintptr_t>(avail) & 15) == 0 &&
+                      (reinterpret_cast<uintptr_t>(total) & 15) == 0;
+#pragma unroll 1
+  for (int j0 = lane; j0 < k; j0 += 128) {
+    int node[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      node[u] = j0 + 32 * u < k ? ranked[(static_cast<long long>(j0 + 32 * u) * g + grp) % n] : 0;
+    uint8_t al[4];
+    float ut[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) al[u] = alive[node[u]], ut[u] = util_of[node[u]];
+    if (rows16) {
+#pragma unroll 1
+      for (int c = 0; c < r; c += 4) {
+        float4 a[4], t[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long at = static_cast<long long>(node[u]) * r + c;
+          a[u] = *reinterpret_cast<const float4*>(avail + at);
+          t[u] = *reinterpret_cast<const float4*>(total + at);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j0 + 32 * u < k) {
+            *reinterpret_cast<float4*>(s.av + (j0 + 32 * u) * r4 + c) = a[u];
+            *reinterpret_cast<float4*>(s.tt + (j0 + 32 * u) * r4 + c) = t[u];
+          }
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int c = 0; c < r4; ++c) {
+        float a[4], t[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long at = static_cast<long long>(node[u]) * r + c;
+          a[u] = c < r ? avail[at] : 0.f;
+          t[u] = c < r ? total[at] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j0 + 32 * u < k) s.av[(j0 + 32 * u) * r4 + c] = a[u], s.tt[(j0 + 32 * u) * r4 + c] = t[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < k) s.node[j] = node[u], s.fl[j] = al[u] ? SLOT_ALIVE : 0, s.ut[j] = ut[u];
+    }
+  }
+  __syncwarp();
+  // Within a group, slots hold distinct nodes unless the deal wraps
+  // (k G > n): then marking `used` looks for every slot of the chosen node.
+  const bool aliased = static_cast<long long>(k) * g > n;
+  int* row = out + static_cast<long long>(grp) * (b + 1);
+  bool all_ok = true;
   for (int bi = 0; bi < b; ++bi) {
-    const long long at = static_cast<long long>(grp) * b + bi;
-    for (int j = tid; j < r; j += blockDim.x) sd[j] = demands[at * r + j];
-    __syncthreads();
-    float best = INF;
-    int best_j = 0x7fffffff;
-    for (int j = tid; j < k; j += blockDim.x) {
+    const float* d = s.dm + bi * r4;
+    unsigned long long least = ~0ull;
+#pragma unroll 4
+    for (int j = lane; j < k; j += 32) {
       bool can;
-      const int node = cidx[j];
-      const float sc =
-          pack_score(av + j * r, total + node * r, alive[node], used[j], sd, r, mode, &can);
-      if (before(sc, j, best, best_j)) best = sc, best_j = j;
+      const unsigned long long key = slot_key(s, j, d, r4, mode, &can);
+      least = key < least ? key : least;
     }
-    const int jx = block_argmin(best, best_j, rk, ri);
-    if (tid == 0) {
-      bool can;
-      const int node = cidx[jx];
-      pack_score(av + jx * r, total + node * r, alive[node], used[jx], sd, r, mode, &can);
-      const bool ok = can && valid[at];
-      if (ok)
-        for (int c = 0; c < r; ++c) av[jx * r + c] = __fsub_rn(av[jx * r + c], sd[c]);
-      out[grp * (b + 1) + bi] = ok ? node : -1;
-      all_ok &= ok || !valid[at];
-      chosen = node;
-      ok_flag = ok;
+    const unsigned hi = __reduce_min_sync(FULL, static_cast<unsigned>(least >> 32));
+    const unsigned lo =
+        __reduce_min_sync(FULL, static_cast<unsigned>(least >> 32) == hi ? static_cast<unsigned>(least) : ~0u);
+    const int w = static_cast<int>(lo);
+    bool ok = false;
+    if (lane == (w & 31)) {
+      slot_key(s, w, d, r4, mode, &ok);
+      ok = ok && s.val[bi];
+      if (ok) {
+        float* av = s.av + w * r4;
+#pragma unroll 1
+        for (int c = 0; c < r4; c += 4) {  // the padding stays 0 - 0
+          float4 x = *reinterpret_cast<float4*>(av + c);
+          const float4 y = *reinterpret_cast<const float4*>(d + c);
+          x.x = __fsub_rn(x.x, y.x), x.y = __fsub_rn(x.y, y.y);
+          x.z = __fsub_rn(x.z, y.z), x.w = __fsub_rn(x.w, y.w);
+          *reinterpret_cast<float4*>(av + c) = x;
+        }
+        s.ut[w] = row_util(av, s.tt + w * r4, r);
+        s.fl[w] |= SLOT_USED;
+      }
+      row[bi] = ok ? s.node[w] : -1;
     }
-    __syncthreads();
-    // "used" by global node id: every slot dealt the chosen node (:150)
-    if (ok_flag)
-      for (int j = tid; j < k; j += blockDim.x)
-        if (cidx[j] == chosen) used[j] = 1;
-    __syncthreads();
+    ok = __shfl_sync(FULL, static_cast<int>(ok), w & 31) != 0;
+    all_ok = all_ok && (ok || !s.val[bi]);
+    if (ok && aliased) {
+      const int chosen = s.node[w];
+#pragma unroll 1
+      for (int j = lane; j < k; j += 32)
+        if (s.node[j] == chosen) s.fl[j] |= SLOT_USED;
+    }
   }
-  if (tid == 0) out[grp * (b + 1) + b] = all_ok;
+  if (lane == 0) row[b] = all_ok;
+}
+
+// The ranking (:100-105) in one cluster: each CTA keys its slice, sorts
+// it (sort_slice) in shared memory (own_smem) or in global memory, and
+// pushes it to the others (STAGED) or leaves it in global memory for them;
+// each key's place by merge path; ranked[place] = node. Then, S3_FUSED,
+// the groups, a warp each, in rounds over the cluster's warps, their state
+// in the shared memory the ranking used (slots_smem) or in `slots`.
+template <bool STAGED>
+__global__ void __launch_bounds__(CT, 1)
+pg_pack_batch_cluster(const float* __restrict__ avail, const float* __restrict__ total,
+                      const uint8_t* __restrict__ alive, const float* __restrict__ demands,
+                      const uint8_t* __restrict__ valid, int n, int r, int g, int b, int k,
+                      int mode, int* ranked, float* slots, int* out, int own_smem,
+                      int slots_smem) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t stage_bar;  // the other slices' keys pushed here
+  // the groups' launch (S3_FUSED false) may start now; it waits for this
+  // grid's end before it reads the order
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, T = blockDim.x;
+  const Slice sl = slice_of(n, C, rank);
+  const int cnt = sl.count, base = sl.base, per = sl.per;
+  const int S = slice_sort_size(per), spr = (per + 3) & ~3;
+  // this slice's sorted keys in global memory, S apart, past the order and
+  // the utils
+  unsigned long long* gkeys = reinterpret_cast<unsigned long long*>(ranked + 2 * order_ints(n)) +
+                              static_cast<long long>(rank) * S;
+  unsigned long long* skey = own_smem ? reinterpret_cast<unsigned long long*>(smem4) : gkeys;
+  if (STAGED) {
+    if (tid == 0) {
+      mbar_init(&stage_bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_expect(&stage_bar, staged_bytes(n, per, rank, C, false));
+    }
+    cluster_arrive();  // waited for before the first push
+  }
+  float* util_of = reinterpret_cast<float*>(ranked + order_ints(n));  // read by the groups
+  for (int i = tid; i < cnt; i += T) skey[i] = rank_key(avail, total, alive, base + i, r, mode, util_of + base + i);
+  sort_slice(skey, cnt, S);
+  int len[MAX_C];
+  peer_lengths(n, per, rank, C, len);
+  if (STAGED) {
+    cluster_wait();
+    push_slice(skey, nullptr, skey + S, nullptr, spr, cnt, rank, C, &stage_bar);
+    if (C > 1) mbar_wait(&stage_bar, 0);
+  } else {
+    if (skey != gkeys)
+      for (int i = tid; i < cnt; i += T) gkeys[i] = skey[i];
+    __threadfence();
+    cluster.sync();  // every slice sorted in global memory
+  }
+  for (int p = tid; p < cnt; p += T) {
+    const unsigned long long me = skey[p];
+    int at[MAX_C];
+    merge_counts<STAGED>(me, S, rank, STAGED ? skey + S : gkeys, STAGED ? spr : S, len, at);
+    int place = p;
+#pragma unroll
+    for (int gi = 0; gi < MAX_C; ++gi) place += at[gi];
+    ranked[place] = key_index(me);
+  }
+  __threadfence();
+  cluster.sync();  // the order written, every push landed
+  if (S3_FUSED) {
+    const int W = T >> 5, warp = tid >> 5;
+    const long long gb = group_bytes(k, r, b);
+    for (int grp = warp * C + rank; grp < g; grp += C * W) {  // spread over the CTAs
+      if (slots_smem)  // two calls, so that the first addresses shared memory as such
+        solve_group<false>(grp, avail, total, alive, demands, valid, n, r, g, b, k, mode,
+                           ranked, reinterpret_cast<char*>(smem4) + warp * gb, out);
+      else
+        solve_group<false>(grp, avail, total, alive, demands, valid, n, r, g, b, k, mode,
+                           ranked, reinterpret_cast<char*>(slots) + grp * gb, out);
+    }
+  }
+}
+
+// S3_FUSED false: the groups' solves after the ranking's launch, a warp
+// each, their state in shared memory (slots_smem) or in `slots`. It is
+// launched as the ranking's programmatic dependent, so its CTAs start
+// while the ranking runs, gather their demands and wait for it there.
+__global__ void __launch_bounds__(GROUP_WARPS * 32)
+pg_pack_groups(const float* __restrict__ avail, const float* __restrict__ total,
+               const uint8_t* __restrict__ alive, const float* __restrict__ demands,
+               const uint8_t* __restrict__ valid, int n, int r, int g, int b, int k, int mode,
+               const int* ranked, float* slots, int* out, int slots_smem) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, grp = blockIdx.x * GROUP_WARPS + warp;
+  if (grp >= g) return;
+  const long long gb = group_bytes(k, r, b);
+  if (slots_smem)  // two calls, so that the first addresses shared memory as such
+    solve_group<true>(grp, avail, total, alive, demands, valid, n, r, g, b, k, mode, ranked,
+                      reinterpret_cast<char*>(smem4) + warp * gb, out);
+  else
+    solve_group<true>(grp, avail, total, alive, demands, valid, n, r, g, b, k, mode, ranked,
+                      reinterpret_cast<char*>(slots) + grp * gb, out);
 }
 
 // Nothing: its launch measures the floor that any launch pays.
 __global__ void empty_kernel() {}
 
-int sort_smem_bytes(int n) {
-  const int p = next_pow2(n);
-  return p <= SMEM_SORT_MAX ? p * 8 : 0;
-}
-
 // --------------------------------------------------------- cluster launches
 
 // The launch shape of a cluster kernel: C CTAs of `threads`, `smem` bytes
-// of dynamic shared memory, the slice in shared memory or not.
+// of dynamic shared memory, the slice in shared memory or not (S3: the
+// other slices staged there or not, its own keys there or not, the
+// groups' state there or not).
 struct Shape {
   int c, threads;
   long long smem;
   bool in_smem;
+  bool own_smem = false, slots_smem = false;
 };
 
 int current_device() {
@@ -1592,6 +1849,31 @@ Shape pack_shape(int n, int r, int b, int c) {
   return s;
 }
 
+// S3 at n x r, b bundles and k candidates a group: the other slices
+// staged beside a CTA's keys in shared memory where they fit (in_smem),
+// else searched in global memory, the CTA's own sorted in shared memory
+// where they fit (own_smem); fused, the groups' state in the same shared
+// memory where it fits.
+Shape batch_shape(int n, int r, int b, int k, int c) {
+  Shape s;
+  s.c = c;
+  const int per = (n + c - 1) / c;
+  s.threads = cta_threads(per);
+  const void* kernel = reinterpret_cast<const void*>(&pg_pack_batch_cluster<true>);
+  const long long keys = 8LL * slice_sort_size(per);
+  const long long staged = keys + 8LL * (c - 1) * ((per + 3) & ~3);
+  const long long slot = S3_FUSED ? (s.threads / 32) * group_bytes(k, r, b) : 0;
+  s.slots_smem = S3_FUSED ? fits(kernel, slot)
+                          : fits(reinterpret_cast<const void*>(&pg_pack_groups),
+                                 GROUP_WARPS * group_bytes(k, r, b));
+  const long long slots = S3_FUSED && s.slots_smem ? slot : 0;
+  s.in_smem = fits(kernel, staged > slots ? staged : slots);
+  s.own_smem = s.in_smem || fits(kernel, keys > slots ? keys : slots);
+  const long long ranking = s.in_smem ? staged : s.own_smem ? keys : 0;
+  s.smem = ranking > slots ? ranking : slots;
+  return s;
+}
+
 cudaLaunchConfig_t cluster_config(const Shape& s, cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(s.c, 1, 1);
@@ -1611,14 +1893,15 @@ cudaLaunchConfig_t cluster_config(const Shape& s, cudaStream_t stream, cudaLaunc
 // per device): its dynamic shared memory limit only ever grows, so a
 // shape chosen before still launches.
 template <typename... Args>
-cudaError_t prepare(void (*kernel)(Args...), const Shape& s) {
+cudaError_t prepare(void (*kernel)(Args...), const Shape& s, bool cluster = true) {
   static std::mutex lock;
   static std::map<std::pair<int, const void*>, long long> granted;
   std::lock_guard<std::mutex> hold(lock);
   long long& have = granted[{current_device(), reinterpret_cast<const void*>(kernel)}];
   if (have == 0) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        cluster ? cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+                : cudaSuccess;
     if (err != cudaSuccess) return err;
     have = -1;
   }
@@ -1665,7 +1948,7 @@ cudaError_t launch(void (*kernel)(Args...), const Shape& s, cudaStream_t stream,
 // The shapes chosen so far, by (device, program, n, r, the demands' part
 // of pg_pack's shape): choosing one asks the runtime for attributes and
 // occupancy, which costs more host time than a launch.
-using ShapeKey = std::tuple<int, int, int, int, int>;
+using ShapeKey = std::tuple<int, int, int, int, int, int>;
 
 std::mutex shapes_lock;
 std::map<ShapeKey, std::pair<Shape, int>> shapes;
@@ -1673,7 +1956,7 @@ std::map<ShapeKey, std::pair<Shape, int>> shapes;
 Shape schedule_choice(int n, int r, int* held) {
   {
     std::lock_guard<std::mutex> hold(shapes_lock);
-    const auto it = shapes.find(ShapeKey(current_device(), 0, n, r, 0));
+    const auto it = shapes.find(ShapeKey(current_device(), 0, n, r, 0, 0));
     if (it != shapes.end()) {
       *held = it->second.second;
       return it->second.first;
@@ -1687,7 +1970,7 @@ Shape schedule_choice(int n, int r, int* held) {
     if (*held > 0) break;
   }
   std::lock_guard<std::mutex> hold(shapes_lock);
-  shapes[ShapeKey(current_device(), 0, n, r, 0)] = {s, *held};
+  shapes[ShapeKey(current_device(), 0, n, r, 0, 0)] = {s, *held};
   return s;
 }
 
@@ -1695,7 +1978,7 @@ Shape pack_choice(int n, int r, int b, int* held) {
   const int dem = 1LL * b * r <= PG_SMEM_DEMANDS ? b : -1;  // the demands' part of the shape
   {
     std::lock_guard<std::mutex> hold(shapes_lock);
-    const auto it = shapes.find(ShapeKey(current_device(), 1, n, r, dem));
+    const auto it = shapes.find(ShapeKey(current_device(), 1, n, r, dem, 0));
     if (it != shapes.end()) {
       *held = it->second.second;
       return it->second.first;
@@ -1708,8 +1991,80 @@ Shape pack_choice(int n, int r, int b, int* held) {
     if (*held > 0) break;
   }
   std::lock_guard<std::mutex> hold(shapes_lock);
-  shapes[ShapeKey(current_device(), 1, n, r, dem)] = {s, *held};
+  shapes[ShapeKey(current_device(), 1, n, r, dem, 0)] = {s, *held};
   return s;
+}
+
+Shape batch_choice(int n, int r, int b, int k, int* held) {
+  {
+    std::lock_guard<std::mutex> hold(shapes_lock);
+    const auto it = shapes.find(ShapeKey(current_device(), 2, n, r, b, k));
+    if (it != shapes.end()) {
+      *held = it->second.second;
+      return it->second.first;
+    }
+  }
+  Shape s;
+  for (int c : CLUSTER_CHOICES) {
+    s = batch_shape(n, r, b, k, c);
+    *held = s.in_smem ? admitted(pg_pack_batch_cluster<true>, s)
+                      : admitted(pg_pack_batch_cluster<false>, s);
+    if (*held > 0) break;
+  }
+  std::lock_guard<std::mutex> hold(shapes_lock);
+  shapes[ShapeKey(current_device(), 2, n, r, b, k)] = {s, *held};
+  return s;
+}
+
+// Ints of `ranked`: the order and the utils, then each CTA's sorted keys
+// where the slices stay in global memory, for the largest of the cluster
+// choices.
+long long batch_ranked_ints(int n) {
+  long long most = 0;
+  for (int c : CLUSTER_CHOICES) {
+    const long long f = 2LL * c * slice_sort_size((n + c - 1) / c);
+    most = f > most ? f : most;
+  }
+  return 2 * order_ints(n) + most;
+}
+
+// S3 on the stream: the ranking into `ranked`, then, for g > 0, the
+// groups' solves into `out` (in the same launch where S3_FUSED).
+cudaError_t s3_launch(const float* avail, const float* total, const uint8_t* alive,
+                      const float* demands, const uint8_t* valid, int n, int r, int g, int b,
+                      int k, int mode, int* ranked, float* slots, int* out, cudaStream_t st) {
+  int held;
+  const Shape s = batch_choice(n, r, b, k, &held);
+  const int in_launch = S3_FUSED ? g : 0;  // groups the cluster solves
+  const int own = s.own_smem, slots_smem = s.slots_smem;
+  cudaError_t err =
+      s.in_smem ? launch(pg_pack_batch_cluster<true>, s, st, avail, total, alive, demands, valid, n,
+                         r, in_launch, b, k, mode, ranked, slots, out, own, slots_smem)
+                : launch(pg_pack_batch_cluster<false>, s, st, avail, total, alive, demands, valid,
+                         n, r, in_launch, b, k, mode, ranked, slots, out, own, slots_smem);
+  if (err != cudaSuccess || S3_FUSED || g == 0) return err;
+  Shape gs;  // a warp a group, GROUP_WARPS a CTA
+  gs.c = (g + GROUP_WARPS - 1) / GROUP_WARPS;
+  gs.threads = GROUP_WARPS * 32;
+  gs.in_smem = s.slots_smem;
+  gs.smem = gs.in_smem ? GROUP_WARPS * group_bytes(k, r, b) : 0;
+  err = prepare(pg_pack_groups, gs, false);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};  // a programmatic dependent of the ranking
+  cfg.gridDim = dim3(gs.c, 1, 1);
+  cfg.blockDim = dim3(gs.threads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(gs.smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pg_pack_groups, avail, total, alive, demands, valid, n, r, g, b,
+                           k, mode, static_cast<const int*>(ranked), slots, out,
+                           static_cast<int>(gs.in_smem));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1765,27 +2120,52 @@ extern "C" int scheduler_launch_shape(int program, int n, int r, int b, long lon
   return 0;
 }
 
+// The launch shape of pg_pack_batch's cluster at n x r, b bundles and k
+// candidates a group: out[0..6] = CTAs, threads a CTA, dynamic shared
+// memory bytes, 1 if the other slices are staged in shared memory,
+// clusters of that shape the card holds at once, 1 if a CTA sorts its
+// slice in shared memory, 1 if the groups' state is there.
+extern "C" int pg_pack_batch_shape(int n, int r, int b, int k, long long* out) {
+  if (n < 1 || r < 1 || r > MAX_R || b < 0 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int held;
+  const Shape s = batch_choice(n, r, b, k, &held);
+  out[0] = s.c, out[1] = s.threads, out[2] = s.smem, out[3] = s.in_smem, out[4] = held;
+  out[5] = s.own_smem, out[6] = s.slots_smem;
+  return 0;
+}
+
+// The scratch pg_pack_batch takes at n nodes x r, g groups of b bundles
+// and k candidates: out[0] ints of `ranked`, out[1] floats of `slots`.
+extern "C" int pg_pack_batch_scratch(int n, int r, int g, int b, int k, long long* out) {
+  if (n < 1 || r < 1 || r > MAX_R || g < 0 || b < 0 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = batch_ranked_ints(n);
+  out[1] = g * group_bytes(k, r, b) / 4;
+  return 0;
+}
+
 // avail, total: fp32 [n, r]; alive: bool [n]; demands: fp32 [g, b, r];
-// valid: bool [g, b]; ranked: int32 [2 next_pow2(n)]; slots: fp32
-// [g, k, r + 2]; out: int32 [g, b + 1]. Two launches: the ranking, then
-// one CTA per group.
+// valid: bool [g, b]; ranked and slots: pg_pack_batch_scratch's ints and
+// floats; out: int32 [g, b + 1].
 extern "C" int pg_pack_batch(const float* avail, const float* total, const uint8_t* alive,
                              const float* demands, const uint8_t* valid, int n, int r, int g,
                              int b, int k, int mode, int* ranked, float* slots, int* out,
                              void* stream) {
   if (n < 1 || r < 1 || r > MAX_R || g < 1 || b < 0 || k < 1 || k > n || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = sort_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(pg_pack_rank_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  pg_pack_rank_kernel<<<1, THREADS, smem, st>>>(avail, total, alive, n, r, mode, ranked);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  pg_pack_batch_kernel<<<g, 256, 0, st>>>(avail, total, alive, demands, valid, n, r, g, b, k,
-                                          mode, ranked, slots, out);
-  return cudaGetLastError();
+  return s3_launch(avail, total, alive, demands, valid, n, r, g, b, k, mode, ranked, slots, out,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// pg_pack_batch's ranking alone, one launch: the first n ints of `ranked`
+// (pg_pack_batch_scratch's, any g and k) become the nodes in the stable
+// order of the strategy's base score, dead rows last (rank_nodes_plain).
+extern "C" int pg_pack_rank(const float* avail, const float* total, const uint8_t* alive, int n,
+                            int r, int mode, int* ranked, void* stream) {
+  if (n < 1 || r < 1 || r > MAX_R || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return s3_launch(avail, total, alive, nullptr, nullptr, n, r, 0, 0, 1, mode, ranked, nullptr,
+                   nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // One launch of an empty kernel, for the launch floor beside each time.

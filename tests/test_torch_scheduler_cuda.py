@@ -161,7 +161,7 @@ def test_pg_pack_batch_kernel_equals_plain(cuda, mode, n_nodes):
     before = pk.launches_pack_batch
     got = pk.pack_batch(*args, mode, wl.PG_TOPK)
     torch.cuda.synchronize()
-    assert pk.launches_pack_batch == before + 2   # pg_pack_rank, pg_pack_batch
+    assert pk.launches_pack_batch == before + 2   # the ranking, the groups
     assert torch.equal(got, want)
 
 
@@ -232,6 +232,26 @@ def test_pg_pack_edge_shapes(cuda, name):
     got = pk.pack(*args, case.mode)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", wl.BATCH_EDGE_NAMES)
+def test_pg_pack_batch_edge_shapes(cuda, name):
+    """The S3 cluster kernel on each edge shape of
+    ``workload.batch_edge_case``: one node, odd slices, either side of
+    16,384 rows, slices in global memory (70,000 rows), R = 1 and 64, one
+    group and 1,024 groups over aliased slots, identical rows, PACK rows
+    at util 0, a group all padding, bundles that fit nowhere: the same
+    nodes and all-placed flags as the plain version, and its ranking
+    alone the plain version's order."""
+    case = wl.batch_edge_case(name)
+    args = [torch.as_tensor(a).to(cuda) for a in (
+        case.avail, case.total, case.alive, case.demands, case.valid)]
+    want = pk.pack_batch_plain(*args, case.mode, case.k)
+    got = pk.pack_batch(*args, case.mode, case.k)
+    ranked = pk.rank_nodes_cuda(*args[:3], case.mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ranked, pk.rank_nodes_plain(*args[:3], case.mode))
 
 
 def test_kernels_on_each_card_in_turn(cuda):

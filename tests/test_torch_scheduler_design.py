@@ -11,11 +11,15 @@ the nodes (one slice a CTA):
   ranking), its cum by its local scan plus the other slices' scans below
   it;
 - ``pg_pack``: each row's util cached and updated only where a bundle
-  lands, each slice's least packed key, the least of the slices'.
+  lands, each slice's least packed key, the least of the slices';
+- ``pg_pack_batch``: the nodes ranked by merge path over the slices'
+  sorted keys, then each group solved as one warp solves it, each slot's
+  util cached and recomputed only for the winner.
 
-It must equal ``schedule_classes_plain`` and ``pack_plain`` bit for bit on
-the kernels' edge shapes (``workload.class_edge_case`` /
-``pack_edge_case``) and the benchmark's, for C in 1, 8 and 16 (the
+It must equal ``schedule_classes_plain``, ``pack_plain`` and
+``pack_batch_plain`` bit for bit on the kernels' edge shapes
+(``workload.class_edge_case`` / ``pack_edge_case`` / ``batch_edge_case``)
+and the benchmark's, for C in 1, 8 and 16 (the
 kernel's 2 levels a round at 8 and 16). The class order is the plain
 version's ``_commit_order`` (the kernel sums the supply in one CTA, as
 the plain version does in one reduction). The
@@ -365,6 +369,106 @@ def test_cluster_argmin_at_the_benchmark_shape():
         avail, total, alive, w.pg_demands)), mode)
     np.testing.assert_array_equal(
         model_pack(avail, total, alive, w.pg_demands, mode, 16), want.numpy())
+
+
+# ------------------------------------------------------------ pg_pack_batch
+
+def rank_keys(avail, total, alive, mode):
+    """Each node's packed key in pg_pack_batch's ranking: its util,
+    negated for PACK, INF for a dead row, with its index."""
+    util = row_util(avail, total)
+    base = -util if mode == "pack" else util
+    return packed_keys(np.where(alive, base, INF), np.arange(len(alive)))
+
+
+def model_rank(avail, total, alive, mode, c):
+    """The cluster's ranking: the slices' keys sorted, each node placed by
+    merge path against the other slices, ranked[place] = node."""
+    n = len(alive)
+    place, _ = merge_ranks(rank_keys(avail, total, alive, mode),
+                           np.zeros(n, F32), slices(n, c))
+    ranked = np.empty(n, np.int64)
+    ranked[place] = np.arange(n)
+    return ranked
+
+
+def model_batch(avail, total, alive, demands, valid, mode, k, ranked):
+    """A warp a group: each slot's util cached from its copy of the row
+    and recomputed only for the winner; the least packed (score, slot)
+    key wins; used marked by node id."""
+    n = len(alive)
+    g, b, r = demands.shape
+    rows = np.arange(g)
+    cand = ranked[(np.arange(k)[None, :] * g + rows[:, None]) % n]
+    av = avail[cand]                                    # [G, k, R]
+    util = row_util(av, total[cand])                    # [G, k]
+    al = alive[cand]
+    used = np.zeros((g, k), bool)
+    out = np.zeros((g, b + 1), np.int32)
+    for bi in range(b):
+        d = demands[:, bi]                              # [G, R]
+        can = al.copy()
+        for j in range(r):
+            can &= (d[:, None, j] <= 0) | (av[:, :, j] + EPS >= d[:, None, j])
+        if mode == "pack":
+            score = -util
+        elif mode == "spread":
+            score = util + np.where(used, SPREAD_PENALTY, F32(0))
+        else:
+            score = util
+            can &= ~used
+        keys = packed_keys(np.where(can, score, INF), np.arange(k))
+        win = (keys.min(axis=1) & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        ok = can[rows, win] & valid[:, bi]
+        at, slot = rows[ok], win[ok]
+        av[at, slot] = av[at, slot] - d[ok]
+        util[at, slot] = row_util(av[at, slot], total[cand[at, slot]])
+        chosen = cand[rows, win]
+        used |= ok[:, None] & (cand == chosen[:, None])
+        out[:, bi] = np.where(ok, chosen, -1)
+    out[:, b] = ((out[:, :b] >= 0) | ~valid).all(axis=1)
+    return out
+
+
+@pytest.mark.parametrize("c", [16, 8])
+@pytest.mark.parametrize("n", [1, 33, 999, 10007])
+def test_cluster_ranking_is_the_stable_argsort(n, c):
+    """pg_pack_batch's ranking by merge path over c slices (odd sizes, a
+    last slice short or empty) is the stable argsort of the base score,
+    dead rows (INF) last, ties and -0 against +0 broken by index, in each
+    mode; it is rank_nodes_plain's order."""
+    rng = np.random.RandomState(n)
+    total = np.tile(np.array([[8, 0, 32, 1]], np.float32), (n, 1))
+    avail = total * rng.choice(np.array([1, 0.5, 0.25], F32), (n, 1))
+    alive = rng.rand(n) >= 0.2
+    for mode in ("pack", "spread", "strict_spread"):
+        util = row_util(avail, total)
+        base = np.where(alive, -util if mode == "pack" else util, INF)
+        got = model_rank(avail, total, alive, mode, c)
+        np.testing.assert_array_equal(got, np.argsort(base, kind="stable"))
+        np.testing.assert_array_equal(got, pk.rank_nodes_plain(
+            *(torch.as_tensor(a) for a in (avail, total, alive)),
+            mode).numpy())
+
+
+@pytest.mark.parametrize("name", [
+    name for name in wl.BATCH_EDGE_NAMES if not name.startswith("n300000")])
+def test_warp_group_solve_equals_plain(name):
+    """The cluster ranking (16 slices) and the warp-a-group solve with
+    cached util give pack_batch_plain's nodes and all-placed flags on each
+    edge shape of ``workload.batch_edge_case`` (300,000 nodes only on the
+    card, in ``test_torch_scheduler_cuda.py``)."""
+    case = wl.batch_edge_case(name)
+    args = [torch.as_tensor(a) for a in (case.avail, case.total, case.alive)]
+    ranked = model_rank(case.avail, case.total, case.alive, case.mode, 16)
+    np.testing.assert_array_equal(
+        ranked, pk.rank_nodes_plain(*args, case.mode).numpy())
+    want = pk.pack_batch_plain(*args, torch.as_tensor(case.demands),
+                               torch.as_tensor(case.valid), case.mode,
+                               case.k).numpy()
+    got = model_batch(case.avail, case.total, case.alive, case.demands,
+                      case.valid, case.mode, case.k, ranked)
+    np.testing.assert_array_equal(got, want)
 
 
 # ----------------------------------------------------- the exact quotient
