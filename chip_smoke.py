@@ -291,6 +291,23 @@ Phases, each fatal on failure:
    card against the CPU function (rtol and atol 1e-4). The launches of
    every kernel over the phase are its ``rl`` path (all 0: RL runs none
    of the flash or scheduler kernels).
+21. Static analysis and the sanitizer (``ray_tpu_torch.devtools``). (a)
+   ``python -m ray_tpu_torch.devtools.analysis --ci`` over the port's
+   tree on this host: exit 0, no unsuppressed finding, the per-pass
+   timings; the committed ``contracts.json`` equal to what
+   ``--emit-contracts`` makes of the tree. (b) A child process started
+   with ``RTPU_SANITIZE=1`` (the gate acts at import) and its own
+   ``RTPU_SANITIZE_LOG`` and ``RTPU_SANITIZE_OBSERVED``: ``init()`` with
+   the card, the flagship deployed on a ``num_gpus=1`` Serve replica
+   answers phase 6's 8 requests through the handle, its forward kernel
+   built at first use under the loader's lock into a build directory of
+   the child's own. Fatal: any violation in the child's ring or the log,
+   an observed lock pair that inverts a declared ``# lock-order:``, no
+   flash forward launch (8 a batch expected), answers or first-batch
+   logits that are not phase 14's bit for bit. A request's wall time is
+   printed beside phase 14's unsanitized one; ``--diff`` lists the
+   observed pairs no declaration covers. Its launches are the
+   ``sanitized_serve`` path.
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
@@ -298,10 +315,11 @@ share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}``,
 ``{"data": ...}``, ``{"tune": ...}``, ``{"dag_workflow_ops": ...}``,
-``{"rl": ...}`` and ``{"kernels": [...]}`` lines (each kernel's
-``launches_by_path`` has the ``data``, ``tune`` and ``checkpoint`` paths
-of phase 18, the ``dag``, ``workflow``, ``autoscaler`` and ``job`` paths
-of phase 19 and the ``rl`` path of phase 20),
+``{"rl": ...}``, ``{"sanitize": ...}`` and ``{"kernels": [...]}`` lines
+(each kernel's ``launches_by_path`` has the ``data``, ``tune`` and
+``checkpoint`` paths of phase 18, the ``dag``, ``workflow``,
+``autoscaler`` and ``job`` paths of phase 19, the ``rl`` path of phase 20
+and the ``sanitized_serve`` path of phase 21),
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -5817,6 +5835,259 @@ def phase_rl(card):
     return out
 
 
+# -- static analysis and the sanitizer ------------------------------------
+
+SANITIZED_WAIT_S = 900.0      # the sanitized child's limit, its nvcc included
+ANALYSIS_WAIT_S = 600.0
+
+
+def _repo_root():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def analysis_ci(card):
+    """Phase 21 (a): the port's static analysis over its own tree on this
+    host (``python -m ray_tpu_torch.devtools.analysis --ci``, exit 0), and
+    the committed contract manifest equal to what ``--emit-contracts``
+    makes of the tree now."""
+    contracts = importlib.import_module(
+        "ray_tpu_torch.devtools.analysis.contracts")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.devtools.analysis", "--ci"],
+        capture_output=True, text=True, cwd=_repo_root(),
+        timeout=ANALYSIS_WAIT_S)
+    ci_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"analysis --ci exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+          f"{proc.stderr[-2000:]}")
+    timings_ms = {}
+    summary = ""
+    for line in proc.stdout.splitlines():
+        parts = line.split()
+        if len(parts) == 4 and parts[0] == "timing" and parts[3] == "ms":
+            timings_ms[parts[1]] = float(parts[2])
+        elif line.startswith("graftcheck:"):
+            summary = line
+    check(summary.startswith("graftcheck: 0 finding(s)"),
+          f"analysis --ci: {summary!r}")
+    t0 = time.perf_counter()
+    fresh = contracts.render_manifest(contracts.emit_contracts())
+    emit_s = time.perf_counter() - t0
+    with open(contracts.default_manifest_path(), encoding="utf-8") as f:
+        committed = f.read()
+    check(committed == fresh, "contracts.json is stale: re-run `python -m "
+          "ray_tpu_torch.devtools.analysis --emit-contracts`")
+    manifest = json.loads(committed)
+    out = {"ci_s": ci_s, "summary": summary, "timings_ms": timings_ms,
+           "emit_s": emit_s, "contracts_in_sync": True,
+           "lock_sites": len(manifest["lock_sites"]),
+           "orders": len(manifest["orders"]),
+           "guarded_fields": sum(len(fields)
+                                 for owners in manifest["guarded"].values()
+                                 for fields in owners.values()),
+           "blocking_escapes": len(manifest["blocking_escapes"])}
+    print(f"analysis --ci ({card}): {summary} in {ci_s:.3f} s; "
+          f"timings {timings_ms} ms; contracts in sync ({emit_s:.3f} s): "
+          f"{out['lock_sites']} lock sites, {out['orders']} orders, "
+          f"{out['guarded_fields']} guarded fields")
+    return out
+
+
+def sanitized_serve_child(io_dir):
+    """Phase 21 (b), in a child started with ``RTPU_SANITIZE=1``: the
+    flagship deployed on a ``num_gpus=1`` Serve replica answers phase 6's
+    requests through the handle, with the sanitizer's lock registry,
+    guarded fields and blocking probes armed, and the kernels built at
+    their first use, under the loader's lock, into a build directory of
+    the child's own. Writes what it saw to ``io_dir/out.pt``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.devtools import sanitizer
+    san_rt = importlib.import_module("ray_tpu_torch.devtools.sanitizer.runtime")
+    router = importlib.import_module("ray_tpu_torch.serve._private.router")
+    check(sanitizer.installed()
+          and threading.Lock.__name__ == "_lock_factory",
+          "sanitized child: the lock factories are not patched")
+    check(isinstance(router.ReplicaSet.__dict__.get("_replicas"),
+                     san_rt.GuardedAttr),
+          "sanitized child: the guarded fields are not armed")
+    check(isinstance(native_loader._lock, san_rt._RLockProxy),
+          "sanitized child: the kernel loader's lock is not instrumented")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    native_loader.BUILD_DIR = os.path.join(io_dir, "_build")
+    requests = torch.load(os.path.join(io_dir, "in.pt"))["requests"].tolist()
+    batches = [requests[i * BATCH:(i + 1) * BATCH]
+               for i in range(len(requests) // BATCH)]
+    rt.init()
+    try:
+        reset_launch_counts()
+        reset_scheduler_launch_counts()
+        before = _counts()
+        deployment = serve.deployment(
+            name="flagship_sanitized", ray_actor_options={"num_gpus": 1})(
+                FlagshipDeployment)
+        t0 = time.perf_counter()
+        handle = serve.run(deployment.bind(), timeout=600)
+        run_s = time.perf_counter() - t0
+        latencies, answers, per_batch = [], [], []
+        for batch in batches:
+            counts = launch_counts()
+            t0 = time.perf_counter()
+            answers += rt.get(handle.remote(batch), timeout=600)
+            latencies.append(time.perf_counter() - t0)
+            per_batch.append(tuple(a - b for a, b in
+                                   zip(launch_counts(), counts)))
+        record = rt.get(handle.record.remote(), timeout=600)
+        launches = _launch_delta(before)
+        serve.shutdown()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    built = sorted(os.listdir(native_loader.BUILD_DIR)) \
+        if os.path.isdir(native_loader.BUILD_DIR) else []
+    violations = [v.to_json() for v in sanitizer.reporter().snapshot()]
+    pairs = sanitizer.observed_pairs()
+    torch.save({"answers": answers, "latency_s": latencies,
+                "per_batch": per_batch, "launches": launches,
+                "serve_run_s": run_s,
+                "construction_s": record["construction_s"],
+                "last_logits": record["last_logits"],
+                "logits_sum": record["logits_sum"], "built": built,
+                "violations": violations, "pairs": pairs},
+               os.path.join(io_dir, "out.pt"))
+    print(f"sanitized child: {len(answers)} answers, launches {launches}, "
+          f"built {built}, {len(violations)} violation(s), {len(pairs)} "
+          f"lock pair(s) observed")
+    return 0
+
+
+def _observed_inversions(observed_path, manifest):
+    """Observed acquisition pairs (a, b) that some declared
+    ``# lock-order:`` lists with b before a."""
+    out = []
+    try:
+        with open(observed_path, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return out
+    orders = [{name: i for i, name in enumerate(decl["nodes"])}
+              for decl in manifest.get("orders", [])]
+    for line in lines:
+        if not line.strip():
+            continue
+        rec = json.loads(line)
+        a, b = rec["held"], rec["acquired"]
+        if any(a in idx and b in idx and idx[a] > idx[b] for idx in orders):
+            out.append(rec)
+    return out
+
+
+def sanitized_serve(direct, served, card):
+    """Phase 21 (b): the child above, started with ``RTPU_SANITIZE=1`` (the
+    gate acts at import, and this process has imported the port), its own
+    ``RTPU_SANITIZE_LOG`` and ``RTPU_SANITIZE_OBSERVED``. Fails on any
+    violation in the child's ring or in the log (its process workers
+    write there too), on an observed pair that inverts a declared order,
+    on no flash forward launch, and on answers that are not phase 14's
+    handle answers bit for bit."""
+    contracts = importlib.import_module(
+        "ray_tpu_torch.devtools.analysis.contracts")
+    cfg = flagship_config()
+    io_dir = tempfile.mkdtemp(prefix="rtpt_sanitized_")
+    try:
+        torch.save({"requests": direct["requests"].cpu()},
+                   os.path.join(io_dir, "in.pt"))
+        log = os.path.join(io_dir, "graftsan.jsonl")
+        observed = os.path.join(io_dir, "observed.jsonl")
+        env = dict(os.environ, RTPU_SANITIZE="1", RTPU_SANITIZE_LOG=log,
+                   RTPU_SANITIZE_OBSERVED=observed)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.sanitized_serve_child(sys.argv[1]))",
+             io_dir], cwd=_repo_root(), env=env, capture_output=True,
+            text=True, timeout=SANITIZED_WAIT_S)
+        child_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines()[-5:]:
+            print(f"  {line}")
+        check(proc.returncode == 0,
+              f"sanitized child exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}{proc.stderr[-4000:]}")
+        got = torch.load(os.path.join(io_dir, "out.pt"), weights_only=False)
+        logged = []
+        if os.path.exists(log):
+            with open(log, encoding="utf-8") as f:
+                logged = [json.loads(line) for line in f if line.strip()]
+        diff = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.devtools.sanitizer",
+             "--diff", observed], capture_output=True, text=True,
+            cwd=_repo_root(), timeout=120)
+        inversions = _observed_inversions(observed,
+                                          contracts.load_manifest() or {})
+        with open(observed, encoding="utf-8") as f:
+            observed_pairs = [json.loads(line) for line in f if line.strip()]
+    finally:
+        shutil.rmtree(io_dir, ignore_errors=True)
+    bad = got["violations"] + logged
+    check(not bad, "sanitizer violations in the sanitized serve:\n"
+          + "\n".join(f"[{v['kind']}] {v['message']}" for v in bad))
+    check(diff.returncode in (0, 1),
+          f"sanitizer --diff exited {diff.returncode}: {diff.stderr}")
+    check(not inversions, "observed lock pairs invert a declared order: "
+          + ", ".join(f"{r['held']} -> {r['acquired']}" for r in inversions))
+    check(got["launches"]["flash_fwd"] > 0,
+          "sanitized serve: no flash forward launch")
+    check(all(b == (cfg.n_layers, 0, 0) for b in got["per_batch"]),
+          f"sanitized serve: (fwd, dQ, dK/dV) launches a batch "
+          f"{got['per_batch']}, expected ({cfg.n_layers}, 0, 0)")
+    check(any(name.startswith("flash_attention-") for name in got["built"]),
+          f"sanitized serve: the forward kernel was not built in the "
+          f"child ({got['built']})")
+    check_answers(got["answers"], direct["answers"],
+                  direct["logits_gap_bf16_fp32"], "sanitized handle", True)
+    check(torch.equal(got["last_logits"], direct["last_logits"])
+          and got["logits_sum"] == direct["logits_sum"],
+          "sanitized handle: the first batch's logits differ from the "
+          "direct run's")
+    plain_s = served["handle"]["batch_latency_s"]
+    out = {"child_s": child_s, "serve_run_s": got["serve_run_s"],
+           "construction_s": got["construction_s"],
+           "batch_latency_s": got["latency_s"],
+           "request_latency_s": [t / BATCH for t in got["latency_s"]],
+           "unsanitized_batch_latency_s": plain_s,
+           "unsanitized_request_latency_s": [t / BATCH for t in plain_s],
+           "violations": 0, "observed_pairs": len(observed_pairs),
+           "undeclared_pairs": [line.strip() for line in
+                                diff.stdout.splitlines()
+                                if "->" in line],
+           "inversions": 0, "built": got["built"],
+           "launches": got["launches"], "bit_equal_direct": True}
+    print(f"sanitized serve ({card}): a request "
+          f"{out['request_latency_s']} s against {out['unsanitized_request_latency_s']} s "
+          f"unsanitized (phase 14's handle, batches of {BATCH}); child "
+          f"{child_s:.3f} s, serve.run {got['serve_run_s']:.3f} s "
+          f"(construction {got['construction_s']:.3f} s, the kernel build "
+          f"included); 0 violations, {len(observed_pairs)} lock pairs "
+          f"observed, {len(out['undeclared_pairs'])} undeclared, 0 "
+          f"inversions; launches {got['launches']}")
+    return out
+
+
+def phase_sanitize(direct, served, card):
+    """Phase 21: the static analysis on this host, then the flagship served
+    under the sanitizer in a child process."""
+    t0 = time.perf_counter()
+    out = {"analysis": analysis_ci(card)}
+    torch.cuda.empty_cache()
+    out["serve"] = sanitized_serve(direct, served, card)
+    out["launches"] = out["serve"]["launches"]
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 21 took {out['wall_s']:.3f} s ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5876,8 +6147,11 @@ def main() -> int:
     slice19 = this.phase_slice19(direct, card)
     torch.cuda.empty_cache()
     rl_out = phase_rl(card)
+    torch.cuda.empty_cache()
+    sanitized = phase_sanitize(direct, served, card)
     data_parts = {**data_out["launches_by_part"],
-                  **slice19["launches_by_part"], "rl": rl_out["launches"]}
+                  **slice19["launches_by_part"], "rl": rl_out["launches"],
+                  "sanitized_serve": sanitized["launches"]}
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
     train_sched = trained["scheduler_launches"]
@@ -5902,6 +6176,7 @@ def main() -> int:
     print(json.dumps({"dag_workflow_ops": slice19, "card": card},
                      default=str))
     print(json.dumps({"rl": rl_out, "card": card}, default=str))
+    print(json.dumps({"sanitize": sanitized, "card": card}, default=str))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{

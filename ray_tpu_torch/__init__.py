@@ -24,6 +24,19 @@ the ViT family (``models.vit``).
 
 from __future__ import annotations
 
+import os as _os
+
+# graftsan must patch the lock factories BEFORE any runtime module
+# creates its locks (module-level locks are born at import time), so
+# this gate sits above every other ray_tpu_torch import. With
+# RTPU_SANITIZE unset the sanitizer package is never imported at all.
+if _os.environ.get("RTPU_SANITIZE") == "1":
+    from ray_tpu_torch.devtools.analysis import contracts as _contracts
+    from ray_tpu_torch.devtools import sanitizer as _graftsan
+
+    _graftsan_manifest = _contracts.load_manifest() or {}
+    _graftsan.install(_graftsan_manifest)
+
 from typing import Any, List, Optional, Sequence, Union
 
 from ray_tpu_torch._private import worker as _worker_mod
@@ -150,3 +163,10 @@ def dump_stacks(node_id: Optional[str] = None) -> dict:
     from ray_tpu_torch._private.ids import NodeID
     nid = NodeID.from_hex(node_id) if node_id else None
     return _worker_mod.global_worker().dump_stacks(nid)
+
+
+# Arming happens at the bottom: the guarded-attribute descriptors
+# need the annotated classes importable, and those modules need the
+# public API above.
+if _os.environ.get("RTPU_SANITIZE") == "1":
+    _graftsan.arm(_graftsan_manifest)

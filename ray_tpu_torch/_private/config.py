@@ -84,6 +84,17 @@ class Config:
                 self._values[name] = typ(value)
             _apply_log_level(self._values)
 
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self._values)
+
+    def restore(self, values: Dict[str, Any]) -> None:
+        """Put back a ``snapshot()``: a runtime's ``_system_config``
+        lives as long as that runtime, not past its ``shutdown()``."""
+        with self._lock:
+            self._values = dict(values)
+            _apply_log_level(self._values)
+
     def serialize(self) -> str:
         return json.dumps(self._values)
 

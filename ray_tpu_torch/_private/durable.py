@@ -133,3 +133,21 @@ def atomic_replace_dir(tmp_dir: str, final_dir: str) -> None:
             os.close(fd)
     os.rename(tmp_dir, final_dir)
     fsync_dir(os.path.dirname(os.path.abspath(final_dir)))
+
+
+# graftsan blocking probes: durable writes (fsync + rename) are the
+# slowest thing the control plane does — holding any instrumented
+# lock across one serializes that plane behind the disk.
+if os.environ.get("RTPU_SANITIZE") == "1":
+    from ray_tpu_torch.devtools.sanitizer import (
+        wrap_blocking as _wrap_blocking)
+
+    atomic_write = _wrap_blocking(atomic_write, "disk", "durable.atomic_write")
+    atomic_write_bytes = _wrap_blocking(
+        atomic_write_bytes, "disk", "durable.atomic_write_bytes")
+    atomic_pickle = _wrap_blocking(
+        atomic_pickle, "disk", "durable.atomic_pickle")
+    atomic_savez = _wrap_blocking(atomic_savez, "disk", "durable.atomic_savez")
+    atomic_replace_dir = _wrap_blocking(
+        atomic_replace_dir, "disk", "durable.atomic_replace_dir")
+    fsync_dir = _wrap_blocking(fsync_dir, "disk", "durable.fsync_dir")

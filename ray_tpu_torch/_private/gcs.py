@@ -233,6 +233,15 @@ class GcsLite:
         for name, epoch in aborted:
             self.publisher.publish("GANG", ("ABORTED", name, epoch))
 
+    def record_actor_restart(self, actor_id: ActorID) -> None:
+        """Count one restart of an actor, in the table itself: an
+        out-of-process GCS hands its callers copies of the actor's
+        info, so a caller's own increment would be lost."""
+        with self._lock:
+            info = self._actors.get(actor_id)
+            if info is not None:
+                info.num_restarts += 1
+
     def update_actor_location(self, actor_id: ActorID,
                               node_id: Optional[NodeID]) -> None:
         """Record the raylet hosting this actor (detached-actor

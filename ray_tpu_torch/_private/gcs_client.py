@@ -120,6 +120,11 @@ class GcsClient:
         with self._cache_lock:
             self._actor_cache.pop(actor_id, None)
 
+    def record_actor_restart(self, actor_id: ActorID) -> None:
+        self._call("record_actor_restart", actor_id)
+        with self._cache_lock:
+            self._actor_cache.pop(actor_id, None)
+
     def update_actor_location(self, actor_id: ActorID,
                               node_id) -> None:
         self._call("update_actor_location", actor_id, node_id)

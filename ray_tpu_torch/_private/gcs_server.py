@@ -95,6 +95,8 @@ class GcsServer:
         s.register("update_actor_state",
                    lambda ctx, aid, st, cause: self._update_actor_state(
                        aid, st, cause))
+        s.register("record_actor_restart",
+                   lambda ctx, aid: self.state.record_actor_restart(aid))
         s.register("update_actor_location",
                    lambda ctx, aid, nid:
                    self.state.update_actor_location(aid, nid))
@@ -164,7 +166,7 @@ class GcsServer:
             # coalesces snapshots
             for method in ("register_node", "remove_node",
                            "register_actor", "update_actor_state",
-                           "update_actor_location",
+                           "record_actor_restart", "update_actor_location",
                            "register_gang", "update_gang_state",
                            "unregister_gang",
                            "register_sliceset", "update_sliceset",

@@ -157,3 +157,8 @@ class LogMonitor:
 
     def stop(self) -> None:
         self._stop.set()
+        # join, so that the runtime's shutdown() leaves no thread behind
+        # (a poll in progress ends within its remote call's timeout)
+        if self._thread is not None \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=10.0)

@@ -95,6 +95,9 @@ def build(names=None) -> dict[str, str]:
         procs = []
         for name, so in pending:
             tmp = f"{so}.{os.getpid()}.tmp"
+            # blocking-ok: one-time compile at first use; the lock IS
+            # the build serialization — concurrent callers must wait for
+            # the single .so rather than race the compiler
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, _source(name)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -149,6 +152,8 @@ def load_host_library(name: str, sources) -> Optional[ctypes.CDLL]:
             if not os.path.exists(so):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{so}.{os.getpid()}.tmp"
+                # blocking-ok: one-time compile at first use; the lock
+                # IS the build serialization (as in build())
                 subprocess.run(["g++", "-O3", "-march=native", "-std=c++17",
                                 "-shared", "-fPIC", *srcs, "-o", tmp],
                                check=True, capture_output=True,

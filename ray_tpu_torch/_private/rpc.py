@@ -634,6 +634,10 @@ class RpcServer:
             live = list(self._live)
         for ctx in live:
             _hard_close(ctx._sock)
+        # serve_forever has returned once shutdown() does; join its
+        # thread so that a stopped server leaves no thread behind
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout=5.0)
 
 
 class RpcClient:
@@ -849,10 +853,18 @@ class RpcClient:
 
     def close(self) -> None:
         self.alive = False
-        try:
-            self._sock.close()
-        except Exception:
-            pass    # already closed by the reader on EOF
+        # shutdown() first wakes the reader blocked in recv (a bare close
+        # can leave it hanging until the peer goes)
+        _hard_close(self._sock)
+
+    def join(self, timeout: float) -> None:
+        """Wait for the reader and the push thread it ends, after
+        ``close()``. Not from under a lock that the push callback or the
+        reader's ``on_close`` takes."""
+        me = threading.current_thread()
+        for thread in (self._reader, getattr(self, "_push_thread", None)):
+            if thread is not None and thread is not me:
+                thread.join(timeout=timeout)
 
 
 class RetryingRpcClient:
@@ -1148,6 +1160,9 @@ class RetryingRpcClient:
             inner = self._inner
         if inner is not None:
             inner.close()
+            # _closed is set, so the reader's on_close returns at once:
+            # join it, so that a closed client leaves no thread behind
+            inner.join(timeout=5.0)
 
 
 def wait_for_server(address: Tuple[str, int], timeout: float = 10.0) -> None:
@@ -1173,3 +1188,17 @@ def wait_for_server(address: Tuple[str, int], timeout: float = 10.0) -> None:
             raise TimeoutError(f"no rpc server at {address}: {last}")
         time.sleep(min(delay, remaining))
         delay = min(delay * 2, 0.5)
+
+
+# graftsan blocking probes: with RTPU_SANITIZE=1 the frame
+# primitives report when called with an instrumented, non-escaped
+# lock held (see devtools/sanitizer). `_send_frame` legitimately
+# runs under the per-connection `_send_lock` — that lock carries a
+# `# blocking-ok:` escape on its definition, so the probe covers
+# every OTHER lock accidentally held across a socket write.
+if os.environ.get("RTPU_SANITIZE") == "1":
+    from ray_tpu_torch.devtools.sanitizer import (
+        wrap_blocking as _wrap_blocking)
+
+    _send_frame = _wrap_blocking(_send_frame, "socket", "rpc._send_frame")
+    _recv_frame = _wrap_blocking(_recv_frame, "socket", "rpc._recv_frame")

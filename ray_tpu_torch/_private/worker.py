@@ -171,6 +171,10 @@ class Worker:
         # the placement-group packer run their kernels there.
         self.device = _runtime_device(num_gpus)
         cfg = get_config()
+        # the overrides are this runtime's: shutdown() puts the process's
+        # config back, so a later init() in the process (a test worker's
+        # next test) does not inherit, say, gcs_mode="process"
+        self._config_before = cfg.snapshot() if _system_config else None
         if _system_config:
             cfg.apply_system_config(_system_config)
         from ray_tpu_torch._private import chaos
@@ -2471,16 +2475,17 @@ class Worker:
             restarts_left = self._actor_restarts.get(actor_id, 0)
             creation = self._actor_specs.get(actor_id)
             tombstoned = actor_id in self._actor_tombstones
-        info = self.gcs.get_actor_info(actor_id)
         if restarts_left != 0 and creation is not None and not tombstoned:
             if restarts_left > 0:
                 with self._actor_lock:
                     self._actor_restarts[actor_id] = restarts_left - 1
             self.gcs.update_actor_state(actor_id, "RESTARTING")
+            # counted by the GCS before the creation is resubmitted, so
+            # the restarted actor never serves a call before its restart
+            # is recorded (a process GCS returns copies of the info)
+            self.gcs.record_actor_restart(actor_id)
             export.emit("ACTOR", {"actor_id": actor_id.hex(),
                                   "state": "RESTARTING"})
-            if info:
-                info.num_restarts += 1
             self.task_manager.add_pending_task(creation)
             self.node_group.submit_task(creation)
         else:
@@ -2748,11 +2753,17 @@ class Worker:
         except Exception:
             pass    # exporter already stopped: stats are optional
         _export.stop()
+        # the flusher saw _shutdown at its last wake (set above); join it
+        # so that shutdown() leaves no runtime thread behind
+        if self._actor_flusher is not threading.current_thread():
+            self._actor_flusher.join(timeout=5.0)
         if self._join_address is None:
             # Session owner: sweep shm orphans left by killed workers.
             from ray_tpu_torch._private.object_store import (
                 sweep_orphan_segments)
             sweep_orphan_segments(self.session)
+        if self._config_before is not None:
+            get_config().restore(self._config_before)
 
     def cancel_task(self, ref, force: bool = False) -> None:
         """Cancel a NORMAL task or an ASYNC-actor call (reference

@@ -506,3 +506,35 @@ def test_session_files_live_under_tmpdir(tmp_path, depth, mode):
         assert out.stdout.splitlines()[-2] == "terminated 1 process(es)"
         for name in ("gcs.addr", "gcs.log", "gcs_state.bin"):
             assert (ours / name).is_file(), name
+
+
+def test_sources_cover_devtools():
+    """The scan above reaches every module of the developer tooling (the
+    static analysis, its sixteen passes and the sanitizer): the same
+    files as the JAX package's ``devtools/``."""
+    names = {str(p.relative_to(ROOT / "ray_tpu_torch")) for p in SOURCES
+             if p.is_relative_to(ROOT / "ray_tpu_torch" / "devtools")}
+    reference = {str(p.relative_to(ROOT / "ray_tpu"))
+                 for p in (ROOT / "ray_tpu" / "devtools").rglob("*.py")}
+    assert names == reference and len(names) == 27, sorted(names)
+
+
+def test_sanitizer_stays_out_unless_asked():
+    """Without ``RTPU_SANITIZE=1``, importing the port (and starting and
+    stopping its runtime) never imports the sanitizer nor patches a
+    lock factory."""
+    env = {k: v for k, v in os.environ.items() if k != "RTPU_SANITIZE"}
+    env["PYTHONPATH"] = str(ROOT)
+    code = ("import sys, threading\n"
+            "import ray_tpu_torch as rt\n"
+            "rt.init(num_cpus=1, num_gpus=0, max_process_workers=1)\n"
+            "rt.shutdown()\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.startswith('ray_tpu_torch.devtools')]\n"
+            "assert not bad, bad\n"
+            "assert type(threading.Lock()).__module__ == '_thread'\n"
+            "print('OFF-OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert "OFF-OK" in proc.stdout
