@@ -288,9 +288,14 @@ Phases, each fatal on failure:
    update traced with torch.profiler. (b) DQN, IMPALA and multi-agent
    PPO, 2 iterations each, every update held against the CPU path the
    same way, and IMPALA's V-trace targets of each batch computed on the
-   card against the CPU function (rtol and atol 1e-4). The launches of
-   every kernel over the phase are its ``rl`` path (all 0: RL runs none
-   of the flash or scheduler kernels).
+   card against the CPU function (rtol and atol 1e-4). (c) The learner
+   gang (``make_dp_update``) at world size 1 on the card (``LocalRanks(1,
+   "cuda")``, one NCCL rank sharing card 0 with this process) for PPO,
+   IMPALA and multi-agent PPO on the last batch of (a) or (b): its first
+   update held against the in-driver update on the same params and
+   batch, every parameter within 1e-4; both ways' update times. The
+   launches of every kernel over the phase are its ``rl`` path (all 0:
+   RL runs none of the flash or scheduler kernels).
 21. Static analysis and the sanitizer (``ray_tpu_torch.devtools``). (a)
    ``python -m ray_tpu_torch.devtools.analysis --ci`` over the port's
    tree on this host: exit 0, no unsuppressed finding, the per-pass
@@ -308,6 +313,17 @@ Phases, each fatal on failure:
    printed beside phase 14's unsanitized one; ``--diff`` lists the
    observed pairs no declaration covers. Its launches are the
    ``sanitized_serve`` path.
+22. The soak (``ray_tpu_torch.soak``): a child process started with
+   ``RTPU_SANITIZE=1`` and its own ``RTPU_SANITIZE_LOG`` runs the port's
+   composed chaos soak at the reference smoke's seed 600 x 14 s with the
+   head on the card (``device="cuda"``), under a 600 s limit. Fatal: a
+   non-zero exit, ``ok`` false, any of the six invariants failing or
+   ``graftsan-clean`` skipped, counts under the reference test's floors
+   (``tests/test_soak.py:206-219``), a live digest other than
+   ``generate_schedule(600, 14.0).digest()``. Printed: the run's wall
+   time, its counts, the calm and chaos p99 of the ingress. The child's
+   launches are the ``soak`` path (0 expected: the lanes are an echo
+   deployment, a numpy trainer and CPU tasks).
 
 Each trace prints the device operations that took the most time and the
 share that the attention kernels took. Then ``{"serving": ...}``,
@@ -315,11 +331,12 @@ share that the attention kernels took. Then ``{"serving": ...}``,
 ``{"vit": ...}``, ``{"runtime": ...}``, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"multislice": ...}``, ``{"cluster": ...}``,
 ``{"data": ...}``, ``{"tune": ...}``, ``{"dag_workflow_ops": ...}``,
-``{"rl": ...}``, ``{"sanitize": ...}`` and ``{"kernels": [...]}`` lines
-(each kernel's ``launches_by_path`` has the ``data``, ``tune`` and
-``checkpoint`` paths of phase 18, the ``dag``, ``workflow``,
-``autoscaler`` and ``job`` paths of phase 19, the ``rl`` path of phase 20
-and the ``sanitized_serve`` path of phase 21),
+``{"rl": ...}``, ``{"sanitize": ...}``, ``{"soak": ...}`` and
+``{"kernels": [...]}`` lines (each kernel's ``launches_by_path`` has the
+``data``, ``tune`` and ``checkpoint`` paths of phase 18, the ``dag``,
+``workflow``, ``autoscaler`` and ``job`` paths of phase 19, the ``rl``
+path of phase 20, the ``sanitized_serve`` path of phase 21 and the
+``soak`` path of phase 22),
 and last the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -5643,6 +5660,7 @@ RL_CHECKED = 3           # PPO updates held against the CPU path
 RL_PPO_ITERS = 30        # the reference's budget and threshold
 RL_PPO_BEST = 120.0      # (tests/test_rl.py:46-64, seed 1)
 RL_OTHER_ITERS = 2       # DQN, IMPALA and multi-agent PPO
+RL_GANG_CALLS = 3        # timed updates of each way in (c)
 
 
 def _leaves(tree):
@@ -5701,10 +5719,11 @@ class CheckedUpdate:
                 "checked_state_max_abs": self.other_err}
 
 
-def rl_ppo(rl, card):
+def rl_ppo(rl, card, batches):
     """(a) PPO at the reference's learning-test settings, learner on the
     card; the first RL_CHECKED updates held against the CPU path; up to
-    RL_PPO_ITERS iterations to reach RL_PPO_BEST; one update traced."""
+    RL_PPO_ITERS iterations to reach RL_PPO_BEST; one update traced. Its
+    config and last update's arguments go into ``batches["ppo"]``."""
     from ray_tpu_torch.rl import ppo
     algo = (rl.PPOConfig()
             .environment("CartPole")
@@ -5731,6 +5750,7 @@ def rl_ppo(rl, card):
         check(best >= RL_PPO_BEST,
               f"rl ppo: best {best:.1f} < {RL_PPO_BEST} in {iters} "
               f"iterations")
+        batches["ppo"] = (algo.config, upd.last_args)
         trace = profile_device(lambda: upd.card(*upd.last_args),
                                "rl ppo update")
         out = {**upd.summary(), "iterations": iters, "best": best,
@@ -5782,9 +5802,10 @@ def rl_vtrace_check(config, got):
     return extra
 
 
-def rl_others(rl, card):
+def rl_others(rl, card, batches):
     """(b) DQN, IMPALA and multi-agent PPO, RL_OTHER_ITERS iterations
-    each, learner on the card, every update held against the CPU path."""
+    each, learner on the card, every update held against the CPU path.
+    Each config and last update's arguments go into ``batches``."""
     from ray_tpu_torch.rl import dqn, impala, multi_agent
     out = {}
     vtrace_err = []
@@ -5804,6 +5825,7 @@ def rl_others(rl, card):
             check(len(upd.param_err) == RL_OTHER_ITERS,
                   f"rl {name}: {len(upd.param_err)} checked updates")
             out[name] = {**upd.summary(), "results": results}
+            batches[name] = (config, upd.last_args)
             print(f"rl {name}: {len(upd.ms)} updates, "
                   f"{out[name]['update_ms_median']:.2f} ms median, card vs "
                   f"CPU {max(upd.param_err):.3e} ({card})")
@@ -5813,9 +5835,61 @@ def rl_others(rl, card):
     return out
 
 
+def _timed_ms(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rl_gang(batches, card):
+    """(c) The learner gang at world size 1 on the card (``LocalRanks(1,
+    "cuda")``: one NCCL rank on card 0, which the driver shares) for PPO,
+    IMPALA and multi-agent PPO: each one's ``make_dp_update`` on the last
+    batch of (a) or (b), its first update held against the in-driver
+    update on the same params and batch within RL_TOL in every parameter,
+    then RL_GANG_CALLS updates of each way timed on the host clock."""
+    from ray_tpu_torch.parallel.launch import LocalRanks
+    from ray_tpu_torch.rl import impala, multi_agent, ppo
+    out = {}
+    t0 = time.perf_counter()
+    with LocalRanks(1, DEVICE) as ranks:
+        start_s = time.perf_counter() - t0
+        for name, module in (("ppo", ppo), ("impala", impala),
+                             ("multi_agent", multi_agent)):
+            config, args = batches[name]
+            gang = module.make_dp_update(config, 1, DEVICE, ranks=ranks)
+            driver = module.make_update(config, DEVICE)
+            got, first_ms = _timed_ms(gang, *args)
+            want, _ = _timed_ms(driver, *args)
+            err = _max_abs(got[0], want[0])
+            check(err <= RL_TOL,
+                  f"rl gang {name}: the world-size-1 gang's update off the "
+                  f"in-driver update by {err:.3e} > {RL_TOL}")
+            gang_ms = [_timed_ms(gang, *args)[1]
+                       for _ in range(RL_GANG_CALLS)]
+            driver_ms = [_timed_ms(driver, *args)[1]
+                         for _ in range(RL_GANG_CALLS)]
+            out[name] = {"param_max_abs": err,
+                         "state_max_abs": _max_abs(got[1:3], want[1:3]),
+                         "gang_first_ms": first_ms, "gang_ms": gang_ms,
+                         "driver_ms": driver_ms,
+                         "gang_ms_median": float(np.median(gang_ms)),
+                         "driver_ms_median": float(np.median(driver_ms))}
+            print(f"rl gang {name} ({card}): gang of 1 vs driver "
+                  f"{err:.3e}; update {out[name]['gang_ms_median']:.2f} ms "
+                  f"through the gang (first {first_ms:.2f} ms) against "
+                  f"{out[name]['driver_ms_median']:.2f} ms in the driver "
+                  f"(medians of {RL_GANG_CALLS})")
+    out["ranks_start_s"] = start_s
+    return out
+
+
 def phase_rl(card):
     """Phase 20: RL (PPO, DQN, IMPALA, multi-agent PPO) with the learners
-    on the card and CPU process-worker runners, after a fresh ``init()``.
+    on the card and CPU process-worker runners, after a fresh ``init()``;
+    then the learner gang at world size 1 against the in-driver learner.
     The launches of every kernel over the phase are its ``rl`` path."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import rl
@@ -5823,11 +5897,14 @@ def phase_rl(card):
           "rl: TF32 is on for fp32 matmuls")
     t0 = time.perf_counter()
     before = _counts()
+    batches = {}
     rt.init()
     try:
-        out = {"ppo": rl_ppo(rl, card), **rl_others(rl, card)}
+        out = {"ppo": rl_ppo(rl, card, batches),
+               **rl_others(rl, card, batches)}
     finally:
         rt.shutdown()
+    out["gang"] = rl_gang(batches, card)
     out["launches"] = _launch_delta(before)
     out["wall_s"] = time.perf_counter() - t0
     print(f"phase 20 took {out['wall_s']:.3f} s, launches "
@@ -6088,6 +6165,124 @@ def phase_sanitize(direct, served, card):
     return out
 
 
+# -- phase 22: the soak ------------------------------------------------------
+
+SOAK_SEED = 600           # tests/test_soak.py's SMOKE_SEED and
+SOAK_DURATION = 14.0      # SMOKE_DURATION: a draw over all six scopes
+SOAK_WAIT_S = 600.0       # the reference smoke's subprocess limit
+SOAK_INVARIANTS = ("no-lost-results", "exactly-once-side-effects",
+                   "gauges-at-baseline", "bounded-p99-inflation",
+                   "graftsan-clean", "replayable-timeline")
+# tests/test_soak.py:206-219: each count at or above its floor (the
+# reference's "> 50" and "> 10" as 51 and 11)
+SOAK_FLOORS = {"fires": 1, "phases": 3, "ingress_ok": 51,
+               "churn_tasks_ok": 11, "trainer_epochs_ok": 1,
+               "scale_tasks_ok": 1, "storm_bcasts_ok": 1,
+               "storm_pulls_deduped": 1}
+
+
+def soak_child(io_dir):
+    """Phase 22, in a child started with ``RTPU_SANITIZE=1``: the port's
+    soak (``SoakRunner``) at SOAK_SEED x SOAK_DURATION with the head on
+    the card (``device="cuda"``), the lanes' ingress p99s kept, and the
+    verdict with the kernel launches of the run written to
+    ``io_dir/result.json``."""
+    from ray_tpu_torch.devtools import sanitizer
+    from ray_tpu_torch.soak import SoakConfig, SoakRunner, oracle
+    check(sanitizer.installed(), "soak child: the sanitizer is not on")
+    runner = SoakRunner(SoakConfig(seed=SOAK_SEED, duration=SOAK_DURATION,
+                                   out_dir=os.path.join(io_dir, "out"),
+                                   device=DEVICE))
+    p99 = {}
+    invariant = runner._p99_invariant
+
+    def keep_p99(ingress):
+        p99["calm_s"] = oracle.percentile(ingress.latencies_calm, 0.99)
+        p99["chaos_s"] = oracle.percentile(ingress.latencies_chaos, 0.99)
+        return invariant(ingress)
+
+    runner._p99_invariant = keep_p99
+    reset_launch_counts()
+    reset_scheduler_launch_counts()
+    before = _counts()
+    t0 = time.perf_counter()
+    verdict = runner.run()
+    wall_s = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    with open(os.path.join(io_dir, "result.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"verdict": verdict.to_dict(), "wall_s": wall_s,
+                   "p99": p99, "launches": launches,
+                   "kind": torch.cuda.get_device_name(0)}, f)
+    print(verdict.render())
+    return 0 if verdict.ok else 1
+
+
+def phase_soak(card):
+    """Phase 22: the port's soak on the card-owning runtime, in a child
+    process started with ``RTPU_SANITIZE=1`` and its own
+    ``RTPU_SANITIZE_LOG`` (the gate acts at import), under SOAK_WAIT_S.
+    Fatal: a non-zero exit, ``ok`` false, any of SOAK_INVARIANTS failing
+    or ``graftsan-clean`` skipped, a count under SOAK_FLOORS, a live
+    digest that is not the dry-run's. Its launches are the ``soak``
+    path."""
+    from ray_tpu_torch.soak.schedule import (fault_log_digest,
+                                             generate_schedule)
+    io_dir = tempfile.mkdtemp(prefix="rtpt_soak_")
+    try:
+        env = dict(os.environ, RTPU_SANITIZE="1",
+                   RTPU_SANITIZE_LOG=os.path.join(io_dir, "san.jsonl"))
+        env.pop("RTPU_CHAOS", None)         # a stray rule or log would
+        env.pop("RTPU_CHAOS_LOG", None)     # skew the replay digest
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.soak_child(sys.argv[1]))", io_dir],
+            cwd=_repo_root(), env=env, capture_output=True, text=True,
+            timeout=SOAK_WAIT_S)
+        child_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines()[-10:]:
+            print(f"  {line}")
+        check(proc.returncode == 0,
+              f"soak child exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}{proc.stderr[-4000:]}")
+        with open(os.path.join(io_dir, "result.json"),
+                  encoding="utf-8") as f:
+            got = json.load(f)
+        live = fault_log_digest(os.path.join(io_dir, "out",
+                                             "fault_events.jsonl"))
+    finally:
+        shutil.rmtree(io_dir, ignore_errors=True)
+    verdict = got["verdict"]
+    check(verdict["ok"] is True, f"soak: verdict not ok: {verdict}")
+    rows = {r["name"]: r for r in verdict["invariants"]}
+    for name in SOAK_INVARIANTS:
+        check(name in rows and rows[name]["ok"],
+              f"soak: {name}: {rows.get(name)}")
+    check(rows["graftsan-clean"]["skipped"] is False,
+          "soak: graftsan-clean skipped: the sanitizer was off")
+    counts = verdict["counts"]
+    for name, floor in SOAK_FLOORS.items():
+        check(counts.get(name, 0) >= floor,
+              f"soak: {name} = {counts.get(name)} < {floor}")
+    want = generate_schedule(SOAK_SEED, SOAK_DURATION).digest()
+    check(live == want and verdict["digest"] == want,
+          f"soak: live digest {live[:12]} (verdict {verdict['digest'][:12]}) "
+          f"!= the dry-run's {want[:12]}")
+    out = {"child_s": child_s, "wall_s": got["wall_s"], "counts": counts,
+           "calm_p99_s": got["p99"].get("calm_s"),
+           "chaos_p99_s": got["p99"].get("chaos_s"),
+           "invariants": verdict["invariants"], "digest": want,
+           "launches": got["launches"], "device": got["kind"]}
+    print(f"phase 22 soak ({card}): seed {SOAK_SEED} x {SOAK_DURATION} s on "
+          f"the card, all six invariants held; run {got['wall_s']:.3f} s "
+          f"(child {child_s:.3f} s); calm p99 {out['calm_p99_s']} s, chaos "
+          f"p99 {out['chaos_p99_s']} s; counts {counts}; launches "
+          f"{got['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6149,9 +6344,12 @@ def main() -> int:
     rl_out = phase_rl(card)
     torch.cuda.empty_cache()
     sanitized = phase_sanitize(direct, served, card)
+    torch.cuda.empty_cache()
+    soaked = phase_soak(card)
     data_parts = {**data_out["launches_by_part"],
                   **slice19["launches_by_part"], "rl": rl_out["launches"],
-                  "sanitized_serve": sanitized["launches"]}
+                  "sanitized_serve": sanitized["launches"],
+                  "soak": soaked["launches"]}
     burst_sched = runtime["burst"]["scheduler_launches"]
     serve_sched = served["scheduler_launches"]
     train_sched = trained["scheduler_launches"]
@@ -6177,6 +6375,7 @@ def main() -> int:
                      default=str))
     print(json.dumps({"rl": rl_out, "card": card}, default=str))
     print(json.dumps({"sanitize": sanitized, "card": card}, default=str))
+    print(json.dumps({"soak": soaked, "card": card}, default=str))
     src = "ray_tpu/ops/flash_attention.py"
     bwd_src = "ray_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [{

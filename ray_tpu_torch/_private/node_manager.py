@@ -1656,7 +1656,14 @@ class NodeManagerGroup:
             return False            # in-process thread: uninterruptible
         try:
             if force:
-                worker.kill()       # death path completes the task
+                worker.kill()
+                # kill() closed the worker's connection and marked it
+                # dead, so the IO loop may never see its EOF: run the
+                # death path here (a second run finds nothing to do)
+                with self._lock:
+                    raylet = self._raylets.get(rt.node_id)
+                if raylet is not None:
+                    self._on_worker_death(raylet, worker)
             else:
                 # record the target FIRST: the worker's SIGINT handler
                 # drops signals aimed at a task it is no longer running

@@ -642,7 +642,11 @@ class RayletServer:
                         # the pool worker would not stop the task)
         try:
             if force:
-                worker.kill()      # death path reports the failure
+                worker.kill()
+                # kill() closed the worker's connection and marked it
+                # dead, so the IO loop may never see its EOF: run the
+                # death path here (a second run finds nothing to do)
+                self._on_worker_death(worker)
             else:
                 from ray_tpu_torch._private.worker_process import (
                     write_cancel_target)
@@ -1231,6 +1235,11 @@ class RayletServer:
                 worker.proc.kill()
             except Exception:
                 pass    # already exited
+        # kill() closed the victim's connection and marked it dead, so
+        # the IO loop (which watches live workers only) may never see
+        # its EOF: complete the task here, with the OOM marker above. A
+        # death the IO loop handled first already popped the task.
+        self._on_worker_death(worker)
         logger.warning(
             "memory watchdog: node at %.2f usage (threshold %.2f); "
             "killed %s task %s (%s, rss=%d)",

@@ -23,7 +23,10 @@ The port's shape, same split as PPO here:
 - the learner is plain torch on the card in the driver: V-trace targets
   (a Python loop over T for the reference's reverse ``lax.scan``),
   policy gradient, value and entropy losses, and the Adam step of
-  ``ppo.py``. One device, no mesh, as in ``ppo.py``.
+  ``ppo.py``. The learner count is ``ppo.learner_count``'s over the
+  batch's ``batch_rollouts x num_envs_per_runner`` envs; above one, a
+  gang of ranks (``ppo.DPUpdate``) runs V-trace on each rank's columns of
+  B and averages the gradient of the rank's local-mean loss over ``dp``.
 
 Staleness is observable: every rollout carries the params version it
 STARTED with; ``train()`` reports the consume-time lag
@@ -47,8 +50,8 @@ from ray_tpu_torch.rl.config import AlgorithmConfigBase
 from ray_tpu_torch.rl.env import make_env
 from ray_tpu_torch.rl.env_runner import _policy_forward
 from ray_tpu_torch.rl.ppo import (
-    _entropy, _log_probs, _net, adam, init_policy_params, learner_device,
-    to_device, to_numpy)
+    DPUpdate, _entropy, _log_probs, _net, adam, init_policy_params,
+    learner_device, pmean_tree, to_device, to_numpy)
 
 
 # --------------------------------------------------------------------------
@@ -173,16 +176,47 @@ def impala_update(params, opt_m, opt_v, obs, actions, behavior_logp,
     return params, opt_m, opt_v, loss
 
 
-def make_update(config: "IMPALAConfig", device="cuda"):
+def impala_update_dp(params, opt_m, opt_v, obs, actions, behavior_logp,
+                     rewards, dones, last_obs, t: int, *, lr, gamma,
+                     rho_clip, c_clip, vf_coeff, entropy_coeff):
+    """``impala_update`` on one rank of a ``dp`` gang, inside an
+    ``axis_env`` of its mesh: V-trace on the rank's columns of B, the
+    gradient of its local-mean loss (and the loss) averaged over ``dp``,
+    then the Adam step, alike on every rank."""
+    import torch
+    not_done = 1.0 - dones.float()
+    grads, loss = torch.func.grad_and_value(_impala_loss)(
+        params, obs, actions.long(), behavior_logp, rewards, not_done,
+        last_obs, gamma, rho_clip, c_clip, vf_coeff, entropy_coeff)
+    grads, loss = pmean_tree(grads, loss)
+    params, opt_m, opt_v = adam(params, opt_m, opt_v, grads, t, lr)
+    return params, opt_m, opt_v, loss
+
+
+def impala_hyper(config) -> Dict:
+    return dict(lr=config.lr, gamma=config.gamma, rho_clip=config.rho_clip,
+                c_clip=config.c_clip, vf_coeff=config.vf_coeff,
+                entropy_coeff=config.entropy_coeff)
+
+
+def make_dp_update(config: "IMPALAConfig", n: int, device="cuda",
+                   ranks=None) -> DPUpdate:
+    """IMPALA's update over a gang of ``n`` ranks (``ranks``, or new
+    ones), with ``make_update``'s signature; ``close()`` stops new
+    ranks."""
+    return DPUpdate(impala_update_dp, impala_hyper(config), n, device,
+                    ranks=ranks)
+
+
+def make_update(config: "IMPALAConfig", device="cuda", learners: int = 1):
     """The update on ``device`` as a function of numpy arrays, with the
     signature of the reference's jitted update: (params, opt_m, opt_v,
     obs, actions, behavior_logp, rewards, dones, last_obs, t) -> (params,
-    opt_m, opt_v, loss)."""
+    opt_m, opt_v, loss). ``learners`` above 1: ``make_dp_update``."""
+    if learners > 1:
+        return make_dp_update(config, learners, device)
     dev = resolve_device(device)
-    hyper = dict(lr=config.lr, gamma=config.gamma,
-                 rho_clip=config.rho_clip, c_clip=config.c_clip,
-                 vf_coeff=config.vf_coeff,
-                 entropy_coeff=config.entropy_coeff)
+    hyper = impala_hyper(config)
 
     def update(params, opt_m, opt_v, obs, actions, behavior_logp, rewards,
                dones, last_obs, t):
@@ -213,7 +247,7 @@ class IMPALAConfig(AlgorithmConfigBase):
     entropy_coeff: float = 0.01
     hidden: int = 64
     seed: int = 0
-    learner_devices: Optional[int] = None   # None or 1: one device
+    learner_devices: Optional[int] = None   # None: every local card
     device: str = "cuda"                    # the learner's device
 
     def build(self) -> "IMPALA":
@@ -232,7 +266,9 @@ class IMPALA:
     def __init__(self, config: IMPALAConfig):
         import torch
         self.config = config
-        self.device = learner_device(config.device, config.learner_devices)
+        self.device, self.learners = learner_device(
+            config.device, config.learner_devices,
+            config.batch_rollouts * config.num_envs_per_runner)
         rt.init()
         probe = make_env(config.env, 1, 0)
         self.obs_dim = probe.obs_dim
@@ -246,7 +282,9 @@ class IMPALA:
         self.iteration = 0
         self._step_count = 0
         self._version = 0
-        self._update = make_update(config, self.device)
+        self._update = make_update(config, self.device, self.learners)
+        # the learner gang, when there is one: stop() closes it
+        self._gang = self._update if self.learners > 1 else None
 
         actor_cls = rt.remote(AsyncEnvRunner)
         self._runners = [
@@ -347,6 +385,8 @@ class IMPALA:
             _ = r.set_params.remote(self.params, self._version)
 
     def stop(self) -> None:
+        if self._gang is not None:
+            self._gang.close()
         for r in self._runners:
             try:
                 rt.kill(r)

@@ -10,7 +10,13 @@ Learner shape: all policies' params and optimizer state are STACKED along
 a leading policy axis and updated together — ``ppo.ppo_update``, the
 single-policy update, run under ``torch.func.vmap`` over that axis (the
 reference ``jax.vmap``s its per-policy update inside one jit), on the
-learner's device in the driver. P policies, one batched set of launches;
+learner's device in the driver. The reference's ``dp`` mesh spans every
+local chip, lowered until it divides B (runners x envs x the most agents
+a policy has); the port's learner count is the same (every local card on
+``"cuda"``, 1 on ``"cpu"``), and above one the update runs on a gang of
+ranks (``ppo.DPUpdate``), each with its columns of B, as
+``ppo.ppo_update_dp(stacked=True)``: per-policy advantage moments summed
+over ``dp``, per-policy gradients averaged over it. P policies, one batched set of launches;
 no per-policy dispatch, no Python loop over policies on the hot path
 (policies share a network shape, the standard stacked-policy layout).
 """
@@ -29,7 +35,8 @@ import ray_tpu_torch as rt
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.rl.config import AlgorithmConfigBase
 from ray_tpu_torch.rl.ppo import (
-    init_policy_params, ppo_update, to_device, to_numpy)
+    DPUpdate, init_policy_params, learner_count, ppo_hyper, ppo_update,
+    ppo_update_dp, to_device, to_numpy)
 
 
 # --------------------------------------------------------------------------
@@ -236,17 +243,27 @@ class MultiAgentPPOConfig(AlgorithmConfigBase):
         return MultiAgentPPO(self)
 
 
-def make_update(config: MultiAgentPPOConfig, device="cuda"):
+def make_dp_update(config: MultiAgentPPOConfig, n: int, device="cuda",
+                   ranks=None) -> DPUpdate:
+    """The stacked update over a gang of ``n`` ranks (``ranks``, or new
+    ones), with ``make_update``'s signature (B is axis 2 of the batch,
+    axis 1 of ``last_obs``); ``close()`` stops new ranks."""
+    return DPUpdate(ppo_update_dp, {**ppo_hyper(config), "stacked": True},
+                    n, device, lead=1, outputs=3, ranks=ranks)
+
+
+def make_update(config: MultiAgentPPOConfig, device="cuda",
+                learners: int = 1):
     """The stacked update on ``device`` as a function of numpy arrays, with
     the signature of the reference's jitted update: (params, m, v, obs,
     actions, old_logp, rewards, dones, last_obs, t0) -> (params, m, v),
-    every leaf with the policy axis in front."""
+    every leaf with the policy axis in front. ``learners`` above 1:
+    ``make_dp_update``."""
     import torch
+    if learners > 1:
+        return make_dp_update(config, learners, device)
     dev = resolve_device(device)
-    one_policy_update = partial(
-        ppo_update, lr=config.lr, gamma=config.gamma, lam=config.lam,
-        clip=config.clip, epochs=config.epochs, vf_coeff=config.vf_coeff,
-        entropy_coeff=config.entropy_coeff)
+    one_policy_update = partial(ppo_update, **ppo_hyper(config))
     stacked = torch.func.vmap(one_policy_update, in_dims=(0,) * 9 + (None,))
 
     def update(params, m, v, obs, actions, old_logp, rewards, dones,
@@ -305,11 +322,22 @@ class MultiAgentPPO:
         self.opt_m = {k: np.zeros_like(v) for k, v in self.params.items()}
         self.opt_v = {k: np.zeros_like(v) for k, v in self.params.items()}
 
-        self._update = make_update(config, self.device)
+        self.learners = learner_count(
+            self.device, None, config.num_env_runners
+            * config.num_envs_per_runner * self._agents_per_policy_max())
+        self._update = make_update(config, self.device, self.learners)
+        # the learner gang, when there is one: stop() closes it
+        self._gang = self._update if self.learners > 1 else None
         self.iteration = 0
         self._step_count = 0
         self._recent: Dict[str, List[float]] = {p: []
                                                 for p in self.policies}
+
+    def _agents_per_policy_max(self) -> int:
+        counts: Dict[str, int] = {}
+        for a in self.agent_ids:
+            counts[self.mapping(a)] = counts.get(self.mapping(a), 0) + 1
+        return max(counts.values())
 
     # -- Trainable API --------------------------------------------------
 
@@ -392,6 +420,8 @@ class MultiAgentPPO:
         self._step_count = st["step_count"]
 
     def stop(self) -> None:
+        if self._gang is not None:
+            self._gang.close()
         for r in self.runners:
             try:
                 rt.kill(r)

@@ -5,14 +5,21 @@ driving an EnvRunnerGroup and a LearnerGroup (DDP learner actors)
 [UNVERIFIED — mount empty, SURVEY.md §0]. The port's shape:
 
 - experience collection stays on cheap CPU actors (numpy inference),
-- the learner runs in the driver (the process that owns the card) as
-  plain torch on the learner's device: GAE as a Python loop over T (the
-  reference's reverse ``lax.scan``), advantage normalisation, the
-  clipped-surrogate epochs as a loop of gradient steps
+- the learner is plain torch on the learner's device: GAE as a Python
+  loop over T (the reference's reverse ``lax.scan``), advantage
+  normalisation, the clipped-surrogate epochs as a loop of gradient steps
   (``torch.func.grad_and_value``), Adam written out. The reference jits
-  one program over a ``dp`` mesh of every local chip; the port's learner
-  runs on one device with no mesh and no process group, and refuses
-  ``learner_devices > 1``.
+  one program over a ``dp`` mesh of ``learner_devices`` chips (every
+  local chip when unset), B sharded over ``dp``, params replicated. The
+  port's learner count is the same: ``learner_devices``, else every local
+  card on ``"cuda"`` and 1 on ``"cpu"``, lowered until it divides the
+  batch's env count. One learner runs in the driver (the process that
+  owns the card). Above one, the learner is a gang of ranks
+  (``DPUpdate``: ``LocalRanks``, NCCL on the cards, gloo on the CPU):
+  rank r takes block r of B, runs GAE on its columns, normalises with the
+  population moments of all T x B advantages (two ``psum``s), and averages
+  each epoch's gradient over ``dp`` (``pmean``) before an Adam step that
+  every rank takes alike.
 
 Resource gang: a placement group reserves one CPU bundle per runner
 plus a learner bundle (GPU when available) — RLlib's heterogeneous
@@ -24,6 +31,7 @@ this package in process workers, which must not pay torch's import.
 
 from __future__ import annotations
 
+import os
 import pickle
 import time
 from dataclasses import dataclass, field
@@ -184,26 +192,53 @@ def to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def learner_device(device, learner_devices: Optional[int] = None):
-    """The learner's ``torch.device``. The port's learner runs on one
-    device: ``learner_devices`` above 1 is refused."""
-    if learner_devices is not None and learner_devices > 1:
+def learner_count(device, learner_devices: Optional[int],
+                  batch_envs: int) -> int:
+    """The learner's device count, as the reference picks its ``dp``:
+    ``learner_devices``, else every local card on ``"cuda"`` and 1 on
+    ``"cpu"``, lowered until it divides ``batch_envs``. More devices than
+    the host has (cards on ``"cuda"``, cores on ``"cpu"``) raise
+    ``ValueError``, as the reference's ``make_mesh`` does."""
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    have = torch.cuda.device_count() if on_card else (os.cpu_count() or 1)
+    n = learner_devices or (have if on_card else 1)
+    while n > 1 and batch_envs % n != 0:
+        n -= 1
+    if n > 1 and n > have:
         raise ValueError(
-            f"learner_devices={learner_devices}: the learner runs on one "
-            "device; a learner over several cards is not supported")
-    return resolve_device(device)
+            f"learner_devices={learner_devices}: a learner over {n} "
+            f"{'cards' if on_card else 'CPU ranks'}, the host has {have}")
+    return max(n, 1)
 
 
-def make_update(config: "PPOConfig", device="cuda"):
+def learner_device(device, learner_devices: Optional[int] = None,
+                   batch_envs: int = 1):
+    """(the learner's ``torch.device``, its device count): the count from
+    ``learner_count``, checked before the device, so that a count the host
+    lacks raises ``ValueError`` with or without a card."""
+    n = learner_count(device, learner_devices, batch_envs)
+    return resolve_device(device), n
+
+
+def ppo_hyper(config) -> Dict:
+    """The update's hyperparameters from a PPO-style config."""
+    return dict(lr=config.lr, gamma=config.gamma, lam=config.lam,
+                clip=config.clip, epochs=config.epochs,
+                vf_coeff=config.vf_coeff,
+                entropy_coeff=config.entropy_coeff)
+
+
+def make_update(config: "PPOConfig", device="cuda", learners: int = 1):
     """The update on ``device`` as a function of numpy arrays, with the
     signature of the reference's jitted update: (params, opt_m, opt_v,
     obs, actions, old_logp, rewards, dones, last_obs, t0) -> (params,
-    opt_m, opt_v, loss), all numpy."""
+    opt_m, opt_v, loss), all numpy. ``learners`` above 1: the gang's
+    update, ``make_dp_update``."""
+    if learners > 1:
+        return make_dp_update(config, learners, device)
     dev = resolve_device(device)
-    hyper = dict(lr=config.lr, gamma=config.gamma, lam=config.lam,
-                 clip=config.clip, epochs=config.epochs,
-                 vf_coeff=config.vf_coeff,
-                 entropy_coeff=config.entropy_coeff)
+    hyper = ppo_hyper(config)
 
     def update(params, opt_m, opt_v, obs, actions, old_logp, rewards,
                dones, last_obs, t0):
@@ -212,6 +247,163 @@ def make_update(config: "PPOConfig", device="cuda"):
         return to_numpy(ppo_update(*args, int(t0), **hyper))
 
     return update
+
+
+# --------------------------------------------------------------------------
+# the learner over a gang of ranks (dp > 1)
+
+
+def _psum_moments(adv, count):
+    """Population mean and std of the advantages of every rank over their
+    last two dims (T and B): the sum, then the squared deviations, each
+    summed over ``dp``. ``count`` is the global T x B."""
+    import torch
+    from ray_tpu_torch.collective.xla import psum
+    dims = (-2, -1)
+    mean = psum(adv.sum(dims), "dp") / count
+    mean = mean[..., None, None]
+    var = psum(((adv - mean) ** 2).sum(dims), "dp") / count
+    return mean, torch.sqrt(var)[..., None, None]
+
+
+def pmean_tree(grads, loss):
+    """``grads`` (a dict of tensors) and ``loss`` averaged over ``dp`` in
+    one all-reduce of their concatenation."""
+    import torch
+    from ray_tpu_torch.collective.xla import pmean
+    keys = sorted(grads)
+    flat = torch.cat([grads[k].reshape(-1) for k in keys]
+                     + [loss.reshape(-1)])
+    flat = pmean(flat, "dp")
+    out, at = {}, 0
+    for k in keys:
+        size = grads[k].numel()
+        out[k] = flat[at:at + size].view_as(grads[k])
+        at += size
+    return out, flat[at:].view_as(loss)
+
+
+def ppo_update_dp(params, opt_m, opt_v, obs, actions, old_logp, rewards,
+                  dones, last_obs, t0: int, *, lr, gamma, lam, clip, epochs,
+                  vf_coeff, entropy_coeff, stacked: bool = False):
+    """``ppo_update`` on one rank of a ``dp`` gang, inside an
+    ``axis_env`` of its mesh: the rank's columns of B, GAE on them, the
+    advantages normalised by the moments of all ranks' T x B, and each
+    epoch's gradient of the rank's local-mean loss averaged over ``dp``
+    before the Adam step. ``stacked``: every leaf and batch array has a
+    leading policy axis (multi-agent PPO), the per-policy pieces run
+    under ``torch.func.vmap`` and the collectives outside it."""
+    import torch
+    from ray_tpu_torch.collective.xla import axis_size
+    actions = actions.long()
+    net = torch.func.vmap(_net) if stacked else _net
+    _, values = net(params, obs)                     # [(P,) T, b]
+    _, last_v = net(params, last_obs)                # [(P,) b]
+    not_done = 1.0 - dones.float()
+
+    def one_gae(r, vals, lv, nd):
+        return gae(r, vals, lv, nd, gamma, lam)
+
+    adv = (torch.func.vmap(one_gae) if stacked else one_gae)(
+        rewards, values, last_v, not_done)
+    ret = adv + values
+    count = adv.shape[-2] * adv.shape[-1] * axis_size("dp")
+    mean, std = _psum_moments(adv, count)
+    adv = (adv - mean) / (std + 1e-8)
+    step = torch.func.grad_and_value(_ppo_loss)
+    if stacked:
+        step = torch.func.vmap(step, in_dims=(0,) * 6 + (None,) * 3)
+    loss = None
+    for t in range(epochs):
+        grads, loss = step(params, obs, actions, old_logp, adv, ret, clip,
+                           vf_coeff, entropy_coeff)
+        grads, loss = pmean_tree(grads, loss)
+        params, opt_m, opt_v = adam(params, opt_m, opt_v, grads,
+                                    t0 + t + 1, lr)
+    return params, opt_m, opt_v, loss
+
+
+# A rank's mesh, made on its first update and kept for the gang's life.
+_dp_mesh = {}
+
+
+def _dp_rank(update_fn, hyper, lead: int, device_type: str, outputs: int,
+             params, opt_m, opt_v, obs, actions, logp, rewards, dones,
+             last_obs, t0):
+    """One rank's share of a gang update (run by ``DPUpdate`` on every
+    rank): its block of B (the columns ``[r B/n, (r+1) B/n)``, the block
+    JAX's device r holds) of every batch array, ``update_fn`` inside an
+    ``axis_env`` of the ``dp`` mesh, TF32 off. Rank 0 returns the first
+    ``outputs`` results as numpy; the others return None."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.collective.xla import axis_env
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = dist.get_rank(), dist.get_world_size()
+    if device_type not in _dp_mesh:
+        _dp_mesh[device_type] = make_mesh(MeshSpec(dp=n), device=device_type)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+
+    def block(x, axis):
+        b = x.shape[axis] // n
+        return np.ascontiguousarray(
+            np.take(x, np.arange(rank * b, (rank + 1) * b), axis=axis))
+
+    batch = [block(x, lead + 1) for x in (obs, actions, logp, rewards,
+                                          dones)]
+    args = to_device((params, opt_m, opt_v, *batch, block(last_obs, lead)),
+                     dev)
+    with axis_env(_dp_mesh[device_type]):
+        out = update_fn(*args, int(t0), **hyper)
+    return to_numpy(tuple(out[:outputs])) if rank == 0 else None
+
+
+class DPUpdate:
+    """A learner update over a gang of ``n`` ranks (``LocalRanks(n,
+    device)``: NCCL ranks on the cards, gloo ranks on the CPU), started
+    here and stopped by ``close``. A call sends params, Adam moments and
+    the whole batch to every rank, each rank runs ``update_fn`` on its
+    block of B (``_dp_rank``), and rank 0's results come back as numpy.
+    B must be divisible by ``n``. ``ranks``: a running ``LocalRanks`` of
+    ``n`` ranks to use instead, which ``close`` leaves running."""
+
+    def __init__(self, update_fn, hyper: Dict, n: int, device="cuda",
+                 lead: int = 0, outputs: int = 4, ranks=None):
+        from ray_tpu_torch.parallel.launch import LocalRanks
+        self.n = n
+        device_type = resolve_device(device).type
+        self._job = (update_fn, hyper, lead, device_type, outputs)
+        self._lead = lead
+        self._own = ranks is None
+        self.ranks = LocalRanks(n, device) if ranks is None else ranks
+        if self.ranks.world_size != n:
+            raise ValueError(f"{self.ranks.world_size} ranks for a gang "
+                             f"of {n}")
+
+    def __call__(self, params, opt_m, opt_v, obs, actions, logp, rewards,
+                 dones, last_obs, t0):
+        b = obs.shape[self._lead + 1]
+        if b % self.n:
+            raise ValueError(f"a batch of {b} envs over {self.n} learner "
+                             "ranks: B must be divisible by the rank count")
+        return self.ranks.run(_dp_rank, *self._job, params, opt_m, opt_v,
+                              obs, actions, logp, rewards, dones, last_obs,
+                              int(t0))[0]
+
+    def close(self) -> None:
+        if self._own:
+            self.ranks.close()
+
+
+def make_dp_update(config: "PPOConfig", n: int, device="cuda",
+                   ranks=None) -> DPUpdate:
+    """PPO's update over a gang of ``n`` ranks (``ranks``, or new ones),
+    with ``make_update``'s signature; ``close()`` stops new ranks."""
+    return DPUpdate(ppo_update_dp, ppo_hyper(config), n, device,
+                    ranks=ranks)
 
 
 # --------------------------------------------------------------------------
@@ -233,7 +425,7 @@ class PPOConfig(AlgorithmConfigBase):
     entropy_coeff: float = 0.01
     hidden: int = 64
     seed: int = 0
-    learner_devices: Optional[int] = None   # None or 1: one device
+    learner_devices: Optional[int] = None   # None: every local card
     use_placement_group: bool = True
     learner_resources: Dict[str, float] = field(default_factory=dict)
     device: str = "cuda"                    # the learner's device
@@ -268,7 +460,9 @@ class PPO:
     def __init__(self, config: PPOConfig):
         import torch
         self.config = config
-        self.device = learner_device(config.device, config.learner_devices)
+        self.device, self.learners = learner_device(
+            config.device, config.learner_devices,
+            config.num_env_runners * config.num_envs_per_runner)
         rt.init()
         probe = make_env(config.env, 1, 0)
         self.obs_dim = probe.obs_dim
@@ -299,7 +493,9 @@ class PPO:
                             for k, v in self.params.items()}  # adam v
         self.iteration = 0
         self._step_count = 0
-        self._update = make_update(config, self.device)
+        self._update = make_update(config, self.device, self.learners)
+        # the learner gang, when there is one: stop() closes it
+        self._gang = self._update if self.learners > 1 else None
         self._recent_returns: List[float] = []
 
     @staticmethod
@@ -367,6 +563,8 @@ class PPO:
         self._step_count = state["step_count"]
 
     def stop(self) -> None:
+        if self._gang is not None:
+            self._gang.close()
         self.runners.shutdown()
         if self._pg is not None:
             from ray_tpu_torch.util.placement_group import (

@@ -25,11 +25,25 @@ norms are held against those, per step, to ``chip_smoke.py``'s mesh
 bounds. It prints a JSON line per run (step times, tokens or images a
 second, peak memory of each rank, kernel launches per step) and a table,
 and exits non-zero if a run fails or disagrees. It imports nothing of JAX.
+
+Then the RL learner over the 4 cards (``rl``): the algorithms of
+``ray_tpu_torch.rl`` built in this process with a learner gang of 4 NCCL
+ranks (``learner_devices=4``; multi-agent PPO takes every card). PPO at
+the reference's learning-test settings (``tests/test_rl.py:46-64``): its
+first RL_CHECKED updates held against the one-card update on the same
+params and batch to RL_TOL in every parameter, then up to RL_ITERS
+iterations to reach RL_BEST; RL_OTHER_ITERS updates each of IMPALA and
+multi-agent PPO held the same way. Update times of both ways are printed beside it.
+
+    python3 -m ray_tpu_torch.tools.mesh_cards --only rl    # the RL run alone
+    python3 -m ray_tpu_torch.tools.mesh_cards --only mesh  # the others
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -46,6 +60,13 @@ PIPE_MICROBATCHES = 4
 SLICE_STEPS = 2
 SLICE_REL = 1e-5       # tests/test_slice_mesh.py:199
 VIT_MESH = {"fsdp": 2, "tp": 2}
+RL_LEARNERS = 4
+RL_TOL = 1e-4          # abs, every parameter: gang vs one-card update
+RL_CHECKED = 3         # PPO updates held against the one-card update
+RL_ITERS = 30          # the reference's budget and threshold
+RL_BEST = 120.0        # (tests/test_rl.py:46-64, seed 1)
+RL_OTHER_ITERS = 2     # IMPALA and multi-agent PPO: the first update
+                       # includes the gang's first call; both checked
 
 
 def _steps(n, fn):
@@ -230,13 +251,140 @@ def _compare(name, per_rank, reference, n):
     return passed, (name, n, first, loss_err, norm_err)
 
 
-def main() -> int:
+def _max_abs(a, b):
+    return max(float(np.max(np.abs(a[k] - b[k]))) for k in b)
+
+
+class _GangChecked:
+    """An algorithm's gang update, timed; each of its first ``checked``
+    calls is also run by the one-card update on the same inputs (timed
+    too) and every parameter of the two held within RL_TOL."""
+
+    def __init__(self, gang, one_card, checked, sync):
+        self.gang, self.one_card, self.checked = gang, one_card, checked
+        self.sync = sync
+        self.gang_ms, self.one_card_ms, self.errs = [], [], []
+
+    def _timed(self, fn, args):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, *args):
+        out, ms = self._timed(self.gang, args)
+        self.gang_ms.append(ms)
+        if len(self.errs) < self.checked:
+            want, ms = self._timed(self.one_card, args)
+            self.one_card_ms.append(ms)
+            self.errs.append(_max_abs(out[0], want[0]))
+        return out
+
+    def summary(self):
+        return {"gang_ms": self.gang_ms, "one_card_ms": self.one_card_ms,
+                "param_max_abs": self.errs,
+                "passed": bool(self.errs)
+                and max(self.errs) <= RL_TOL}
+
+
+def run_rl(device="cuda", learners=RL_LEARNERS):
+    """The RL learner over ``learners`` ranks on ``device`` (module
+    docstring); returns (passed, the runs' records)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl import impala, multi_agent, ppo
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    rt.init(**({} if on_card else {"num_gpus": 0}))
+    try:
+        algo = (rl.PPOConfig()
+                .environment("CartPole")
+                .env_runners(num_env_runners=2, num_envs_per_runner=16,
+                             rollout_length=128)
+                .training(lr=3e-3, epochs=10, entropy_coeff=0.01, seed=1,
+                          device=device)
+                .resources(learner_devices=learners)
+                .build())
+        try:
+            upd = algo._update = _GangChecked(
+                algo._update, ppo.make_update(algo.config, device),
+                RL_CHECKED, sync)
+            best, iters, walls = 0.0, 0, []
+            while (iters < RL_CHECKED or best < RL_BEST) \
+                    and iters < 1 + RL_ITERS:
+                result = algo.train()
+                iters += 1
+                walls.append(result["time_this_iter_s"])
+                if iters > 1:
+                    best = max(best, result["episode_return_mean"])
+            out["ppo"] = {**upd.summary(), "learners": algo.learners,
+                          "iterations": iters, "best": best,
+                          "iteration_s": walls}
+            out["ppo"]["passed"] &= (best >= RL_BEST
+                                     and algo.learners == learners)
+        finally:
+            algo.stop()
+        for name, module, config in (
+                ("impala", impala, rl.IMPALAConfig(
+                    lr=3e-3, seed=3, device=device,
+                    learner_devices=learners)),
+                ("multi_agent", multi_agent, rl.MultiAgentPPOConfig(
+                    seed=3, device=device))):
+            algo = config.build()
+            try:
+                upd = algo._update = _GangChecked(
+                    algo._update, module.make_update(config, device),
+                    RL_OTHER_ITERS, sync)
+                for _ in range(RL_OTHER_ITERS):
+                    algo.train()
+                out[name] = {**upd.summary(), "learners": algo.learners}
+                out[name]["passed"] &= algo.learners == learners
+            finally:
+                algo.stop()
+    finally:
+        rt.shutdown()
+    for name, rec in out.items():
+        print(json.dumps({"run": f"rl {name}", "ranks": rec["learners"],
+                          **rec}))
+        print(f"rl {name}: {rec['learners']} learners, gang vs one card "
+              f"{max(rec['param_max_abs']):.3e} (bound {RL_TOL}); update "
+              f"ms through the gang {[round(t, 2) for t in rec['gang_ms']]}"
+              f", on one card {[round(t, 2) for t in rec['one_card_ms']]}"
+              + (f"; best {rec['best']:.1f} after {rec['iterations']} "
+                 f"iterations" if name == "ppo" else "")
+              + ("" if rec["passed"] else "  FAILED"))
+    return all(rec["passed"] for rec in out.values()), out
+
+
+def main(argv=None) -> int:
     import chip_smoke as cs
+    parser = argparse.ArgumentParser(prog="mesh_cards")
+    parser.add_argument("--only", choices=("mesh", "rl"),
+                        help="run only the mesh runs or only the RL run")
+    args = parser.parse_args(argv)
     n_cards = torch.cuda.device_count()
     if n_cards != CARDS:
         print(f"mesh_cards: needs {CARDS} CUDA cards, found {n_cards}",
               file=sys.stderr)
         return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    ok = True
+    if args.only != "rl":
+        ok &= run_meshes(cs, n_cards)
+    if args.only != "mesh":
+        ok &= run_rl()[0]
+    return 0 if ok else 1
+
+
+def run_meshes(cs, n_cards) -> bool:
+    """The flagship, slice, pipeline and ViT runs (module docstring)."""
     cs.native_loader.build()
     with LocalRanks(n_cards, device="cuda") as ranks:
         train = {json.dumps(kw): ranks.run(_run, kw) for kw in MESHES}
@@ -283,7 +431,7 @@ def main() -> int:
         print(f"{key:32s} {n:5d} {sum(times) / len(times):12.5f} "
               f"{r['peak_mem_bytes'] / 1e9:10.3f} {le:9.2e} {ne:9.2e} "
               f"{r['launches_per_step'][-1]}")
-    return 0 if ok else 1
+    return ok
 
 
 if __name__ == "__main__":

@@ -86,6 +86,35 @@ def test_cancel_force_kills_and_never_retries(rt):
         ray_tpu_torch.get(ref, timeout=30)   # no retry despite max_retries=3
 
 
+def test_force_cancel_completes_without_the_io_loop(rt, monkeypatch):
+    """A force-cancelled task completes even when the node's IO loop
+    never reports its worker's EOF: ``kill()`` closes the connection and
+    marks the worker dead, after which the loop no longer watches it, so
+    the kill path runs the death handling itself."""
+    from ray_tpu_torch._private import worker_pool
+
+    @ray_tpu_torch.remote(max_retries=3)
+    def stubborn():
+        while True:
+            try:
+                time.sleep(30)
+            except KeyboardInterrupt:
+                continue
+
+    ref = stubborn.remote()
+    time.sleep(1.0)
+    # from here on the IO loop ignores every killed worker: the race it
+    # could lose (the conn closed while it waits) made deterministic
+    found = worker_pool.WorkerPool.worker_by_conn
+    monkeypatch.setattr(
+        worker_pool.WorkerPool, "worker_by_conn",
+        lambda self, conn: (lambda w: w if w is None or w.alive else None)(
+            found(self, conn)))
+    ray_tpu_torch.cancel(ref, force=True)
+    with pytest.raises(TaskCancelledError):
+        ray_tpu_torch.get(ref, timeout=30)
+
+
 def test_cancel_after_finish_keeps_result(rt):
     @ray_tpu_torch.remote
     def f():

@@ -160,13 +160,36 @@ def test_ppo_resource_gang(ray_start_regular):
         algo.stop()
 
 
-def test_learner_devices_above_one_refused():
+def test_learner_devices_above_one_refused(ray_start_regular):
+    """``learner_devices`` above the host's card count is refused with
+    ``ValueError`` (the reference's ``make_mesh`` refuses more devices
+    than it has); above one on the CPU, the learner is a gang of that
+    many gloo ranks, which ``stop()`` closes."""
+    import torch
     from ray_tpu_torch.rl import IMPALAConfig, PPOConfig
+    from ray_tpu_torch.rl.ppo import DPUpdate
     for config in (PPOConfig(), IMPALAConfig()):
-        config.learner_devices = 2
-        config.device = "cpu"
-        with pytest.raises(ValueError, match="one device"):
+        # twice the cards, or 2 without one: the divisor loop over the
+        # default 32 envs keeps it, so it stays above the card count
+        config.learner_devices = 2 * max(torch.cuda.device_count(), 1)
+        with pytest.raises(ValueError, match="the host has"):
             config.build()
+    algo = (PPOConfig()
+            .environment("CartPole")
+            .env_runners(num_env_runners=2, num_envs_per_runner=2,
+                         rollout_length=8)
+            .training(device="cpu")
+            .resources(learner_devices=2)
+            .build())
+    try:
+        assert algo.learners == 2
+        assert isinstance(algo._update, DPUpdate)
+        assert algo._update.ranks.world_size == 2
+        result = algo.train()
+        assert np.isfinite(result["loss"])
+    finally:
+        algo.stop()
+    assert not any(p.is_alive() for p in algo._gang.ranks._procs)
 
 
 def test_learners_default_to_the_card(ray_start_regular):
