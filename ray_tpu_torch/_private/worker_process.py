@@ -64,6 +64,7 @@ from ray_tpu_torch._private.object_store import (
     create_segment,
 )
 from ray_tpu_torch.exceptions import TaskError
+from ray_tpu_torch.util import tracing
 
 # Process-level fallback: user code may spawn its OWN threads inside a
 # task and call the API from them; those threads inherit the process's
@@ -763,21 +764,12 @@ class ExecutionEnv:
 
     @staticmethod
     def _with_trace_annotation(name: str, call):
-        """Wrap the user call in ``torch.profiler.record_function`` when
-        torch is already loaded in this worker — no-op (and no torch
-        import) otherwise."""
-        import sys as _sys
-        torch = _sys.modules.get("torch")
-        if torch is not None:
-            try:
-                record_function = torch.profiler.record_function
-            except AttributeError:
-                return call()
-            # NOT inside the try: a user error must propagate, not
-            # trigger a silent second execution.
-            with record_function(name):
-                return call()
-        return call()
+        """Run the user call inside ``tracing.span(name)``: while a
+        ``torch.profiler`` capture runs in this worker, a span and a
+        ``record_function`` of the task's name; otherwise one flag
+        check (and no torch import)."""
+        with tracing.span(name):
+            return call()
 
     @staticmethod
     def _publish_channels(pubs, blob: bytes, kind: str = "blob") -> None:

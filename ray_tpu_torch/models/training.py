@@ -35,6 +35,7 @@ from ray_tpu_torch.models import sharded
 from ray_tpu_torch.models.transformer import (
     TransformerConfig, init_params, loss_fn, param_specs)
 from ray_tpu_torch.parallel.mesh import DATA_AXES, P, tree_map
+from ray_tpu_torch.util.tracing import span
 
 
 def param_leaves(tree) -> List[torch.Tensor]:
@@ -123,18 +124,19 @@ class AdamW:
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} "
                              f"parameters")
-        if norm is None:
-            norm = global_norm(grads)
-        grads = clip_by_global_norm(grads, self.max_norm, norm)
-        lr = self.schedule(state.count)
-        state.count += 1
-        bc1 = 1.0 - self.b1 ** state.count
-        bc2 = 1.0 - self.b2 ** state.count
-        for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            update = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
-            p.sub_(lr * update.add_(p, alpha=self.weight_decay))
+        with span("rt.optim.update"):
+            if norm is None:
+                norm = global_norm(grads)
+            grads = clip_by_global_norm(grads, self.max_norm, norm)
+            lr = self.schedule(state.count)
+            state.count += 1
+            bc1 = 1.0 - self.b1 ** state.count
+            bc2 = 1.0 - self.b2 ** state.count
+            for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
+                mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+                nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+                update = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
+                p.sub_(lr * update.add_(p, alpha=self.weight_decay))
         return norm
 
 
@@ -173,7 +175,8 @@ def sharded_value_and_grad(loss_shard, params, specs, mesh, *args):
     leaf_specs = param_leaves(tree_map(lambda _, spec: spec, params, specs))
     with xla.axis_env(mesh):
         loss = loss_shard(params, *args)
-        grads = torch.autograd.grad(loss, leaves)
+        with span("rt.train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         grads = sharded.sync_grads(grads, leaf_specs)
         norm = sharded.global_norm(grads, leaf_specs)
         loss = xla.psum(loss.detach(), DATA_AXES)
@@ -245,7 +248,8 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
         def loss_and_grads(state, batch):
             leaves = param_leaves(state.params)
             loss = loss_fn(state.params, batch, cfg, attn_fn)
-            grads = torch.autograd.grad(loss, leaves)
+            with span("rt.train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
             return loss, grads, None
     else:
         from ray_tpu_torch.ops.ring_attention import make_attention_fn
@@ -265,12 +269,14 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
                 batch, cfg, attn_fn)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if not donate:
-            state = _copy_state(state)
-        for p in param_leaves(state.params):
-            p.requires_grad_(True)
-        loss, grads, norm = loss_and_grads(state, batch)
-        grad_norm = tx.update_(state.params, grads, state.opt_state, norm)
+        with span("rt.train.step"):
+            if not donate:
+                state = _copy_state(state)
+            for p in param_leaves(state.params):
+                p.requires_grad_(True)
+            loss, grads, norm = loss_and_grads(state, batch)
+            grad_norm = tx.update_(state.params, grads, state.opt_state,
+                                   norm)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "step": state.step}
         state.step += 1

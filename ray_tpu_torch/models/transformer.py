@@ -31,6 +31,7 @@ import torch.utils.checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.parallel.mesh import P, local_block
+from ray_tpu_torch.util.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,12 +329,13 @@ def loss_fn(params, batch: Dict[str, torch.Tensor],
     loss_mask [B,S]. The forward runs on the full S; the shift to next-
     token targets happens on the logits."""
     tokens = batch["tokens"]
-    logits = forward(params, tokens, cfg, attn_fn=attn_fn)[:, :-1]
-    targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    mask = batch.get("loss_mask")
-    if mask is not None:
-        mask = mask[:, 1:].float()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return nll.mean()
+    with span("rt.train.forward"):
+        logits = forward(params, tokens, cfg, attn_fn=attn_fn)[:, :-1]
+        targets = tokens[:, 1:].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:].float()
+            return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return nll.mean()

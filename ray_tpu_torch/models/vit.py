@@ -26,6 +26,7 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig, _attention, _dense_init, apply_blocks, init_params,
     param_specs, rms_norm)
 from ray_tpu_torch.parallel.mesh import P
+from ray_tpu_torch.util.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,5 +157,6 @@ def vit_loss_fn(params: Dict, batch: Dict[str, torch.Tensor],
                 cfg: ViTConfig) -> torch.Tensor:
     """Mean cross-entropy of ``batch["labels"]`` [B] under the logits of
     ``batch["images"]``."""
-    return vit_nll(vit_forward(params, batch["images"], cfg),
-                   batch["labels"]).mean()
+    with span("rt.train.forward"):
+        return vit_nll(vit_forward(params, batch["images"], cfg),
+                       batch["labels"]).mean()

@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
+from ray_tpu_torch.util.tracing import span
 
 
 class StopTrial(Exception):
@@ -125,23 +126,26 @@ def report(metrics: Dict[str, Any],
     ctx = get_context()
     if not ctx.report_dir:
         return  # local mode: nothing to deliver
-    if _stop_requested(ctx):
-        raise StopTrial()
-    ctx._report_seq += 1
-    payload: Dict[str, Any] = {"metrics": dict(metrics), "rank": ctx.rank,
-                               "seq": ctx._report_seq}
-    if checkpoint is not None:
-        # persist into the trial dir so it outlives the worker
-        dst = os.path.join(ctx.trial_dir,
-                           f"checkpoint_{ctx._report_seq:06d}_r{ctx.rank}")
-        if os.path.abspath(checkpoint.path) != os.path.abspath(dst):
-            shutil.copytree(checkpoint.path, dst, dirs_exist_ok=True)
-        payload["checkpoint_path"] = dst
-    # crash-atomic (shared durable helper): the trainer's drain loop
-    # must never observe a torn report file under the final name
-    from ray_tpu_torch._private import durable
-    name = f"report_{ctx.rank:04d}_{ctx._report_seq:08d}.pkl"
-    durable.atomic_pickle(os.path.join(ctx.report_dir, name), payload)
+    with span("rt.train.report"):
+        if _stop_requested(ctx):
+            raise StopTrial()
+        ctx._report_seq += 1
+        payload: Dict[str, Any] = {"metrics": dict(metrics),
+                                   "rank": ctx.rank,
+                                   "seq": ctx._report_seq}
+        if checkpoint is not None:
+            # persist into the trial dir so it outlives the worker
+            dst = os.path.join(
+                ctx.trial_dir,
+                f"checkpoint_{ctx._report_seq:06d}_r{ctx.rank}")
+            if os.path.abspath(checkpoint.path) != os.path.abspath(dst):
+                shutil.copytree(checkpoint.path, dst, dirs_exist_ok=True)
+            payload["checkpoint_path"] = dst
+        # crash-atomic (shared durable helper): the trainer's drain loop
+        # must never observe a torn report file under the final name
+        from ray_tpu_torch._private import durable
+        name = f"report_{ctx.rank:04d}_{ctx._report_seq:08d}.pkl"
+        durable.atomic_pickle(os.path.join(ctx.report_dir, name), payload)
     # AFTER the report lands: an elastic re-form happens at a
     # RANK-AGREED boundary — the RESIZE file carries the target report
     # seq (stamped ahead of every rank's progress), and each rank

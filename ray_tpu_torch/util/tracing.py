@@ -8,7 +8,7 @@ cards, and every task executes inside a ``record_function`` span
 carrying its name, so the kernels in the profile attribute to the task
 that launched them (GPU work runs on threads of this process).
 
-Two layers, cheap to expensive:
+Three layers, cheap to expensive:
 
 - **Task timeline** (always on): per-task RUNNING→FINISHED spans with
   worker-measured ``exec_ms`` (result serialization copies device
@@ -19,17 +19,37 @@ Two layers, cheap to expensive:
   run the workload → ``stop_trace()``, which writes a Chrome trace
   ``*.pt.trace.json`` into the logdir (Perfetto or chrome://tracing).
   Task names appear as ``record_function`` spans above the kernels.
+- **Program spans** (recorded only while a ``torch.profiler`` capture
+  runs in this process): ``with span(name)`` at a layer boundary records
+  ``Span`` (name, start and end in ``time.time_ns()``, thread) into a
+  bounded buffer that ``recorded_spans()`` reads and ``clear_spans()``
+  empties; it outlives ``shutdown()``. The span also opens
+  ``record_function(name)``, so a capture that records CPU ops links each
+  kernel launched inside it to the span. The profiler's clock is
+  ``time.time_ns()`` too. With no capture running a span costs one flag
+  check.
+
+Spans of the training path: ``rt.train.step`` (``make_train_step``'s
+step), ``rt.train.forward`` (``loss_fn``, ``vit_loss_fn``),
+``rt.train.backward`` (``torch.autograd.grad`` of the step),
+``rt.optim.update`` (``AdamW.update_`` with the global norm and the
+clip), ``rt.train.report`` (``train.report`` from the stop check to the file on
+disk), and each task under its own name.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
+import sys
+import threading
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 __all__ = ["start_trace", "stop_trace", "trace", "timeline",
-           "task_events"]
+           "task_events", "span", "Span", "recorded_spans", "clear_spans"]
 
 _active = {"logdir": None, "profiler": None}
 
@@ -111,3 +131,83 @@ def timeline(path: Optional[str] = None) -> List[dict]:
         with open(path, "w") as f:
             json.dump(trace_events, f)
     return trace_events
+
+
+class Span(NamedTuple):
+    """One closed span."""
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+
+
+# A traced benchmark window records a few thousand spans; the oldest give
+# way first.
+SPAN_CAPACITY = 1 << 16
+_spans: "collections.deque[Span]" = collections.deque(maxlen=SPAN_CAPACITY)
+_OFF = contextlib.nullcontext()
+_profiler = None        # torch.autograd.profiler, once torch is loaded
+
+
+def _find_profiler():
+    """``torch.autograd.profiler`` if torch is loaded in this process,
+    else None. The first time it is found, check that it has the flag
+    ``span`` reads, so a torch without it fails here, saying why."""
+    global _profiler
+    module = sys.modules.get("torch.autograd.profiler")
+    if module is not None:
+        if not hasattr(module, "_is_profiler_enabled"):
+            raise ImportError(
+                "ray_tpu_torch.util.tracing reads the process-wide flag "
+                "torch.autograd.profiler._is_profiler_enabled, which this "
+                "torch does not have")
+        _profiler = module
+    return module
+
+
+class _Recording:
+    __slots__ = ("name", "start", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        from torch.autograd.profiler import record_function
+        self.annotation = record_function(self.name)
+        self.annotation.__enter__()
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self.annotation.__exit__(*exc)
+        _spans.append(Span(self.name, self.start, end,
+                           threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` records a ``Span`` while a ``torch.profiler``
+    capture runs in this process (any thread, any activities), and opens
+    ``record_function(name)`` around it; with no capture running it
+    records nothing. The check is
+    ``torch.autograd.profiler._is_profiler_enabled``, which every capture
+    sets process-wide (``torch.autograd._profiler_enabled()`` reads a
+    thread's state, and is false on every thread under a
+    ``profile_all_threads`` capture)."""
+    profiler = _profiler or _find_profiler()
+    if profiler is None or not profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name)
+
+
+def recorded_spans() -> List[Span]:
+    """The closed spans in the buffer, in the order they closed."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()
+
+
+# Imported after torch, the module checks the flag now.
+_find_profiler()
